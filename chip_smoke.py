@@ -8,21 +8,41 @@ PyTorch built for CUDA.  It
 
 1. prints the environment and requires compute capability (9, 0);
 2. builds every kernel from ``src/repro_torch/csrc`` (into ``build/``);
-3. holds the ``batched_walk`` kernel against its plain PyTorch version on
-   the card, exactly (integer words and counts: tolerance 0), over a sweep
-   of hop counts, batch sizes, widths and densities;
-4. drives the port's main path on the card: capture of the German, Compas
-   and Census use cases at their Table VIII sizes and of a TPC-DI join at
-   scale factor 20 followed by a filter, then B = 64 Q1 and Q2 probes
-   through ``prov(index)...run()``, Q5/Q6 on German and Q9-Q11 on Compas.
-   Launch counts are zeroed just before and read just after; Compas must
-   launch the fused kernel.  Every answer must equal the per-op walk on the
-   card, and German, Compas and a scale-factor-3 join must also equal the
-   port run on the CPU.  The kernel is then held against its plain version
-   on the Compas chain's real planes and on a Census-sized 5-hop chain;
-5. times the kernel at the Compas Q2 shape (CUDA events, medians) beside
-   its plain version, a per-hop ``torch.matmul`` yardstick and its bound,
-   plus end-to-end query latencies, capture times and peak memory.
+3. holds each kernel against its plain PyTorch version on the card,
+   exactly (integer words, ranks, tables and counts: tolerance 0), over
+   synthetic sweeps: ``batched_walk`` over hop counts, batch sizes, widths
+   and densities; ``bitmatmul`` with K off a word boundary, bits of A past
+   K, empty rows and densities 0 to 0.5; ``bitset_rank`` and
+   ``lineage_gather`` with Q = 1..257, degree 0 and ``max_deg`` above every
+   degree;
+4. drives the record-level main path on the card: capture of the German,
+   Compas and Census use cases at their Table VIII sizes and of a TPC-DI
+   join at scale factor 20 followed by a filter, then B = 64 Q1 and Q2
+   probes through ``prov(index)...run()`` on a walk session
+   (``use_hopcache=False``, the fused kernel on), Q5/Q6 on German and
+   Q9-Q11 on Compas.  Launch counts are zeroed just before and read just
+   after; German and Compas must launch the fused kernel twice each.  Every
+   answer must equal the per-op walk on the card, and German, Compas and a
+   scale-factor-3 join must also equal the port run on the CPU;
+5. drives the default route, the composed hop-cache (``QuerySession()``,
+   backend ``"auto"``): the same Q1/Q2 on all four configurations and
+   Q10/Q11 on Compas, with ``explain()`` and ``stats()``; answers equal the
+   walk and, where the CPU ran, the CPU;
+6. drives the hop-cache in its ``"bitplane"`` backend on German, Compas and
+   Census, where every composition and every probe is a ``bitmatmul``
+   launch: for a linear chain of K ops, K - 1 compositions on the first
+   query and one launch per batched probe, asserted exactly; then holds the
+   kernel against its plain version on the real Compas and Census
+   compositions;
+7. runs the per-hop baseline ``batched_walk_unfused`` against the fused
+   walk on the Compas Q1 and Q2 chains: byte-equal, in K x 3 launches
+   (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against 1;
+8. calibrates the cost model on the card (quick grid, into a file under
+   ``build/``) and prints the fitted constants, which are not installed;
+9. times every kernel at the main path's shapes (CUDA events, medians)
+   beside its plain version, its bound and, where one exists, a one-call
+   PyTorch yardstick, plus end-to-end latencies of the walk, the default
+   hop-cache and the bitplane hop-cache.
 
 Every phase prints one JSON line.  Any failure raises and the exit code is
 not 0.  The last three lines are the kernel table, the card's name and
@@ -31,6 +51,7 @@ power limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,10 +64,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (published)
-INT_OPS_PER_S = 67e12         # H100 SXM CUDA-core rate outside the tensor cores (published)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+# 32-bit AND/OR/XOR: 64 results per clock per SM, popc: 16, for compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table), x 132 SMs x 1.98 GHz boost clock of the H100 SXM
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+POPC_PER_S = 132 * 16 * 1.98e9
 SEED = 1234
 B = 64
+DEV = torch.device("cuda", 0)
 
 
 def emit(obj) -> None:
@@ -102,6 +128,7 @@ def host_ms(fn, reps: int = 7) -> float:
 
 def word_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| over 32-bit words read as unsigned, 0 iff equal."""
+    check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
     ua = a.to(torch.int64) & 0xFFFFFFFF
@@ -113,7 +140,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
+    # routing runs on the cost model's defaults: point the calibration file
+    # at a path inside the checkout that is never written
+    os.environ["REPRO_TORCH_CALIBRATION"] = str(ROOT / "build" / "no_calibration.json")
 
+    from repro_torch.core import calibrate
+    from repro_torch.core.hopcache import ComposedIndex
     from repro_torch.core.pipeline import ProvenanceIndex
     from repro_torch.core.query import (
         forward_record_masks_batch,
@@ -123,10 +155,15 @@ def main() -> int:
     from repro_torch.dataprep.tracked import track
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.batched_walk import batched_walk_cuda
+    from repro_torch.kernels.bitmatmul import bitmatmul_cuda
+    from repro_torch.kernels.bitset_rank import bitset_rank_cuda
+    from repro_torch.kernels.lineage_gather import lineage_gather_cuda
     from repro_torch.provenance import QuerySession, prov
 
+    t_start = time.perf_counter()
+    dev = DEV
+
     # -- 1. environment --------------------------------------------------------
-    dev = torch.device("cuda", 0)
     cap = torch.cuda.get_device_capability(dev)
     card = smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -139,35 +176,94 @@ def main() -> int:
     libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
+    check({"batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"} <= set(libs),
+          f"missing kernel libraries: {sorted(libs)}")
 
-    # -- 3. kernel against its plain version (synthetic sweep) -------------------
+    # -- 3. each kernel against its plain version (synthetic sweeps) ------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand_bits(rows, cols, dens):
+        return ref.pack_bits(torch.rand(rows, cols, generator=gen, device=dev) < dens)
+
     widths = (1, 31, 33, 1000, 7214)
-    max_err = 0
+    walk_err = 0
     n_cases = 0
     for k in (1, 3, 7):
         for b in (1, 8, 64, 257):
             for di, dens in enumerate((0.0, 1e-3, 0.05, 0.5)):
                 dims = [widths[(i + k + b + di) % len(widths)] for i in range(k + 1)]
-                planes = [ref.pack_bits(torch.rand(dims[j], dims[j + 1], generator=gen,
-                                                   device=dev) < dens) for j in range(k)]
-                mask = ref.pack_bits(torch.rand(b, dims[0], generator=gen, device=dev)
-                                     < max(dens, 0.01))
+                planes = [rand_bits(dims[j], dims[j + 1], dens) for j in range(k)]
+                mask = rand_bits(b, dims[0], max(dens, 0.01))
                 out, cnt = batched_walk_cuda(mask, planes)
                 want_out, want_cnt = ref.batched_walk_ref(mask, planes)
                 torch.cuda.synchronize()
                 err = max(word_err(out, want_out), int((cnt - want_cnt).abs().max()))
-                check(err == 0, f"kernel != plain at K={k} B={b} dims={dims} density={dens}")
-                max_err = max(max_err, err)
+                check(err == 0, f"batched_walk != plain at K={k} B={b} dims={dims} density={dens}")
+                walk_err = max(walk_err, err)
                 n_cases += 1
-    emit({"phase": "kernel_vs_plain", "cases": n_cases, "max_abs_err": max_err,
+    emit({"phase": "kernel_vs_plain", "kernel": "batched_walk", "cases": n_cases,
+          "max_abs_err": walk_err, "tolerance": 0})
+
+    bm_err = 0
+    n_cases = 0
+    for m in (0, 1, 8, 64, 257):
+        for k in (1, 31, 33, 1000, 7214):
+            for n in (1, 33, 1000, 6907):
+                for dens in (0.0, 0.01, 0.5):
+                    a = rand_bits(m, k, dens)
+                    if m > 1:
+                        a[m // 2] = 0                           # an empty row
+                    if k % 32 and m:
+                        a[:, -1] |= torch.tensor(-(1 << 31), dtype=torch.int32, device=dev)
+                    bb = rand_bits(k, n, dens)
+                    err = word_err(bitmatmul_cuda(a, bb), ref.bitmatmul_ref(a, bb))
+                    check(err == 0, f"bitmatmul != plain at M={m} K={k} N={n} density={dens}")
+                    bm_err = max(bm_err, err)
+                    n_cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "bitmatmul_vs_plain", "cases": n_cases, "max_abs_err": bm_err,
           "tolerance": 0})
 
-    # -- 4. the main path on the card ----------------------------------------------
+    rank_err = 0
+    n_cases = 0
+    for w in (0, 1, 7, 8192, 8193, 14464, 100000):
+        for q in (1, 2, 64, 257):
+            words = torch.randint(-(1 << 31), (1 << 31) - 1, (w,), generator=gen, device=dev,
+                                  dtype=torch.int64).to(torch.int32)
+            pos = torch.randint(-3, 32 * w + 40, (q,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+            err = int((bitset_rank_cuda(words, pos) - ref.bitset_rank_ref(words, pos)).abs().max())
+            check(err == 0, f"bitset_rank != plain at W={w} Q={q}")
+            rank_err = max(rank_err, err)
+            n_cases += 1
+    emit({"phase": "bitset_rank_vs_plain", "cases": n_cases, "max_abs_err": rank_err,
+          "tolerance": 0})
+
+    gather_err = 0
+    n_cases = 0
+    for r in (1, 5, 300):
+        for max_deg_hi in (1, 40):
+            for md in (1, 3, 33, 100):
+                for q in (1, 7, 64, 257):
+                    deg = torch.randint(0, max_deg_hi, (r,), generator=gen, device=dev)
+                    rp = torch.zeros(r + 1, dtype=torch.int32, device=dev)
+                    rp[1:] = torch.cumsum(deg, 0)
+                    col = torch.randint(0, 1000, (int(rp[-1]) + md,), generator=gen,
+                                        device=dev, dtype=torch.int64).to(torch.int32)
+                    qs = torch.randint(-1, r + 1, (q,), generator=gen, device=dev,
+                                       dtype=torch.int64).to(torch.int32)
+                    err = int((lineage_gather_cuda(qs, rp, col, md)
+                               - ref.lineage_gather_ref(qs, rp, col, max_deg=md)).abs().max())
+                    check(err == 0, f"lineage_gather != plain at R={r} max_deg={md} Q={q}")
+                    gather_err = max(gather_err, err)
+                    n_cases += 1
+    emit({"phase": "lineage_gather_vs_plain", "cases": n_cases, "max_abs_err": gather_err,
+          "tolerance": 0})
+
+    # -- 4. the record-level main path on the card: the walk --------------------
     rng = np.random.default_rng(SEED)
     capture_s = {}
     indexes = {}
-    ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     for name, (make, run) in U.USECASES.items():
         idx = ProvenanceIndex(name)            # device=None: the card
@@ -207,16 +303,19 @@ def main() -> int:
     def q2(idx, src, sink, ps, session=None):
         return prov(idx).source(sink).rows_batch(ps).backward().to(src).run(session)
 
+    walk_sessions = {name: QuerySession(idx, use_hopcache=False, fused_walk=True)
+                     for name, (idx, _, _) in indexes.items()}
     answers = {}
     launches = {}
+    ops.reset_launch_counts()
     for name, (idx, src, sink) in indexes.items():
         before = ops.launch_counts().get("batched_walk", 0)
-        a1 = q1(idx, src, sink, queries[name]["q1"])
-        a2 = q2(idx, src, sink, queries[name]["q2"])
+        a1 = q1(idx, src, sink, queries[name]["q1"], walk_sessions[name])
+        a2 = q2(idx, src, sink, queries[name]["q2"], walk_sessions[name])
         torch.cuda.synchronize()
         launches[name] = ops.launch_counts().get("batched_walk", 0) - before
         answers[name] = (a1, a2)
-    main_launches = ops.launch_counts().get("batched_walk", 0)
+    main_counts = ops.launch_counts()
     main_peak = torch.cuda.max_memory_allocated(dev)
     for name in ("german", "compas"):
         check(launches[name] == 2, f"{name} Q1+Q2 launched batched_walk "
@@ -225,19 +324,19 @@ def main() -> int:
           "rows": {n: {"source": i.datasets[s].n_rows, "sink": i.datasets[t].n_rows,
                        "sink_cols": i.datasets[t].n_cols}
                    for n, (i, s, t) in indexes.items()},
-          "batched_walk_launches": launches,
-          "fused_walk": {n: i.session().counters["fused_walk"]
-                         for n, (i, _, _) in indexes.items()}})
+          "batched_walk_launches": launches, "launch_counts": main_counts,
+          "fused_walk": {n: s.counters["fused_walk"] for n, s in walk_sessions.items()}})
 
     # every answer equals the per-op walk on the card
+    plain_walk = {}
     for name, (idx, src, sink) in indexes.items():
-        walk = QuerySession(idx, fused_walk=False)
-        w1 = q1(idx, src, sink, queries[name]["q1"], walk)
-        w2 = q2(idx, src, sink, queries[name]["q2"], walk)
-        for got, want in ((answers[name][0], w1), (answers[name][1], w2)):
+        walk = QuerySession(idx, use_hopcache=False, fused_walk=False)
+        plain_walk[name] = (q1(idx, src, sink, queries[name]["q1"], walk),
+                            q2(idx, src, sink, queries[name]["q2"], walk))
+        for got, want in zip(answers[name], plain_walk[name]):
             check(len(got) == len(want) == B, f"{name}: batch size")
             for g, w in zip(got, want):
-                check(torch.equal(g, w), f"{name}: fused/default answer != walk")
+                check(torch.equal(g, w), f"{name}: fused answer != walk")
 
     # German, Compas and the join at scale factor 3 also equal the CPU run;
     # dataset ids come from a process-wide counter, so datasets are aligned
@@ -251,6 +350,7 @@ def main() -> int:
         return [(h.op_id, h.op_name, h.category, h.n_records) for h in trace]
 
     cpu = {}
+    cpu_answers = {}
     for name in ("german", "compas"):
         make, run = U.USECASES[name]
         idx_c = ProvenanceIndex(name, device="cpu")
@@ -259,17 +359,23 @@ def main() -> int:
         cpu[name] = (idx_c, src_c, sink_c.dataset_id)
         for og, oc in zip(indexes[name][0].ops, idx_c.ops):
             check(og.tensor.nnz == oc.tensor.nnz, f"{name}: op nnz differs")
-        same(answers[name][0], q1(idx_c, src_c, sink_c.dataset_id, queries[name]["q1"]),
-             f"{name} Q1: card != CPU")
-        same(answers[name][1], q2(idx_c, src_c, sink_c.dataset_id, queries[name]["q2"]),
-             f"{name} Q2: card != CPU")
+        walk_c = QuerySession(idx_c, use_hopcache=False)
+        cpu_answers[name] = (q1(idx_c, src_c, sink_c.dataset_id, queries[name]["q1"], walk_c),
+                             q2(idx_c, src_c, sink_c.dataset_id, queries[name]["q2"], walk_c))
+        same(answers[name][0], cpu_answers[name][0], f"{name} Q1: card != CPU")
+        same(answers[name][1], cpu_answers[name][1], f"{name} Q2: card != CPU")
     jc, jc_sink = run_join(3, "cpu")
     jg, jg_sink = run_join(3, dev)
     qs3 = {"q1": probes(jc.datasets["trade"].n_rows), "q2": probes(jc.datasets[jc_sink].n_rows)}
-    same(q1(jg, "trade", jg_sink, qs3["q1"]), q1(jc, "trade", jc_sink, qs3["q1"]),
-         "tpcdi sf3 Q1: card != CPU")
-    same(q2(jg, "trade", jg_sink, qs3["q2"]), q2(jc, "trade", jc_sink, qs3["q2"]),
-         "tpcdi sf3 Q2: card != CPU")
+    sf3 = {"card": {}, "cpu": {}}
+    for which, (i, s) in (("card", (jg, jg_sink)), ("cpu", (jc, jc_sink))):
+        ws = QuerySession(i, use_hopcache=False)
+        sf3[which]["walk"] = (q1(i, "trade", s, qs3["q1"], ws), q2(i, "trade", s, qs3["q2"], ws))
+        sf3[which]["hopcache"] = (q1(i, "trade", s, qs3["q1"]), q2(i, "trade", s, qs3["q2"]))
+    for route in ("walk", "hopcache"):
+        for k in (0, 1):
+            same(sf3["card"][route][k], sf3["cpu"]["walk"][k],
+                 f"tpcdi sf3 Q{k + 1} {route}: card != CPU")
     del jc, jg
 
     # Q5/Q6 on German, Q9-Q11 on Compas, each against the CPU run
@@ -285,45 +391,152 @@ def main() -> int:
         check([hops_key(h) for _, h in got] == [hops_key(h) for _, h in want],
               "Q5/Q6 hop traces: card != CPU")
         check(all(len(h) == 4 for r, h in got if r.numel()), "Q5/Q6: 4 hops per live probe")
-    co = {}
-    for which, (i, s, t) in (("card", indexes["compas"]), ("cpu", cpu["compas"])):
+
+    def co_queries(i, s, t, session):
         mid = i.ops[1].output_id                    # the filter's output
         ps = queries["compas"]["q2"][:8]
-        co[which] = (
-            prov(i).source(t).transformations().run(),
-            prov(i).source(mid).rows_batch(ps).co_contributory(s).run(),
-            prov(i).source(t).rows_batch(ps).co_dependency(s, mid).run(),
+        return (
+            prov(i).source(t).transformations().run(session),
+            prov(i).source(mid).rows_batch(ps).co_contributory(s).run(session),
+            prov(i).source(t).rows_batch(ps).co_dependency(s, mid).run(session),
+            # with a named meeting dataset Q10 can route to the hop-cache
+            prov(i).source(mid).rows_batch(ps).co_contributory(s, via=t).run(session),
         )
-    q9, q10, q11 = co["card"]
+
+    co = {which: co_queries(i, s, t, QuerySession(i, use_hopcache=False))
+          for which, (i, s, t) in (("card", indexes["compas"]), ("cpu", cpu["compas"]))}
+    q9, q10, q11, q10_via = co["card"]
     check([(r["op"], r["category"]) for r in q9]
           == [(r["op"], r["category"]) for r in co["cpu"][0]] and len(q9) == 7, "Q9")
     same(q10, co["cpu"][1], "Q10: card != CPU")
     same(q11, co["cpu"][2], "Q11: card != CPU")
+    same(q10_via, co["cpu"][3], "Q10 via the sink: card != CPU")
     check(any(x.numel() for x in q10) and any(x.numel() for x in q11), "Q10/Q11 empty")
     emit({"phase": "answers", "equal_fused_vs_walk": sorted(indexes),
           "equal_card_vs_cpu": ["german", "compas", "tpcdi_sf3"],
           "q5_q6_probes": len(hows["card"][0]), "q9_ops": len(q9),
           "q10_q11_probes": len(q10)})
 
-    # -- 3b. kernel against its plain version on real planes ------------------------
-    ci, csrc, csink = indexes["compas"]
-    chain = [op.tensor for op in ci.ops]
+    # -- 5. the default route: the composed hop-cache ("auto") ------------------
+    ops.reset_launch_counts()
+    hop = {}
+    explains = {}
+    for name, (idx, src, sink) in indexes.items():
+        session = idx.session()                      # QuerySession(): use_hopcache=True
+        plans = (prov(idx).source(src).rows_batch(queries[name]["q1"]).forward().to(sink).plan(),
+                 prov(idx).source(sink).rows_batch(queries[name]["q2"]).backward().to(src).plan())
+        explains[name] = [session.explain(p) for p in plans]
+        hop[name] = tuple(session.run(p) for p in plans)
+    co_hop = co_queries(*indexes["compas"], indexes["compas"][0].session())
+    torch.cuda.synchronize()
+    default_counts = ops.launch_counts()
+    for name in indexes:
+        for got, want in zip(hop[name], answers[name]):
+            same(got, want, f"{name}: hop-cache answer != walk")
+    for name in ("german", "compas"):
+        for got, want in zip(hop[name], cpu_answers[name]):
+            same(got, want, f"{name}: hop-cache answer != CPU")
+    for j, what in ((1, "Q10"), (2, "Q11"), (3, "Q10 via the sink")):
+        same(co_hop[j], co["card"][j], f"{what}: hop-cache session != walk")
+        same(co_hop[j], co["cpu"][j], f"{what}: hop-cache session != CPU")
+    for name, (idx, _, _) in indexes.items():
+        for ex in explains[name]:
+            check(ex["constants"]["source"] == "default", f"{name}: routing constants not default")
+    emit({"phase": "hopcache_default", "launch_counts": default_counts,
+          "compas_co_query_counters": indexes["compas"][0].session().counters,
+          "stats": {n: i.session().stats() for n, (i, _, _) in indexes.items()},
+          "explain": explains})
+
+    # -- 6. the hop-cache's bitplane backend: every compose and probe a launch ---
+    def mask_stack(ps, n):
+        m = torch.zeros((len(ps), n), dtype=torch.bool, device=dev)
+        for b, p in enumerate(ps):
+            m[b, torch.tensor(p, dtype=torch.int64, device=dev)] = True
+        return m
+
+    def nonzeros(stack):
+        return [torch.nonzero(r).reshape(-1) for r in stack]
+
+    bitplane = {}
+    bp_launch = {}
+    bp_expected = {}
+    ops.reset_launch_counts()
+    for name in ("german", "compas", "census"):
+        idx, src, sink = indexes[name]
+        check(all(len(op.input_ids) == 1 for op in idx.ops), f"{name}: not a linear chain")
+        ci = ComposedIndex(idx, memory_budget_bytes=2 << 30, backend="bitplane")
+        before = ops.launch_counts().get("bitmatmul", 0)
+        fwd = ci.probe_forward(mask_stack(queries[name]["q1"], idx.datasets[src].n_rows),
+                               src, sink)
+        bwd = ci.probe_backward(mask_stack(queries[name]["q2"], idx.datasets[sink].n_rows),
+                                sink, src)
+        torch.cuda.synchronize()
+        bp_launch[name] = ops.launch_counts().get("bitmatmul", 0) - before
+        bp_expected[name] = (len(idx.ops) - 1) + 2
+        bitplane[name] = ci
+        check(bp_launch[name] == bp_expected[name],
+              f"{name}: bitplane hop-cache launched bitmatmul {bp_launch[name]} times, "
+              f"expected {bp_expected[name]}")
+        same(nonzeros(fwd), answers[name][0], f"{name}: bitplane Q1 != walk")
+        same(nonzeros(bwd), answers[name][1], f"{name}: bitplane Q2 != walk")
+        if name in cpu:
+            same(nonzeros(fwd), cpu_answers[name][0], f"{name}: bitplane Q1 != CPU")
+            same(nonzeros(bwd), cpu_answers[name][1], f"{name}: bitplane Q2 != CPU")
+    bitplane_counts = ops.launch_counts()
+
+    # the kernel against its plain version on real compositions
+    compositions = {}
+    for name in ("compas", "census"):
+        idx, src, sink = indexes[name]
+        prefix = bitplane[name].relation(src, idx.ops[-1].input_ids[0])
+        step = idx.ops[-1].tensor.bitplane_fwd(0)
+        err = word_err(bitmatmul_cuda(prefix, step), ref.bitmatmul_ref(prefix, step))
+        torch.cuda.synchronize()
+        check(err == 0, f"bitmatmul != plain on the {name} composition")
+        compositions[name] = (prefix, step)
+    emit({"phase": "hopcache_bitplane", "bitmatmul_launches": bp_launch,
+          "expected": bp_expected, "launch_counts": bitplane_counts,
+          "stats": {n: ci.stats() for n, ci in bitplane.items()},
+          "composition_shapes": {n: [list(a.shape), list(b.shape)]
+                                 for n, (a, b) in compositions.items()},
+          "composition_max_abs_err": 0, "tolerance": 0})
+
+    # -- 7. the per-hop baseline against the fused walk on the Compas chains ---
+    ci_idx, csrc, csink = indexes["compas"]
+    chain = [op.tensor for op in ci_idx.ops]
     compas_fwd = [t.bitplane_fwd(0) for t in chain]
     compas_bwd = [t.bitplane_bwd(0) for t in reversed(chain)]
-    q2_mask = ref.pack_bits(torch.stack(
-        [torch.zeros(ci.datasets[csink].n_rows, dtype=torch.bool, device=dev)
-         .index_fill_(0, torch.tensor(p, device=dev), True)
-         for p in queries["compas"]["q2"]]))
-    q1_mask = ref.pack_bits(torch.stack(
-        [torch.zeros(ci.datasets[csrc].n_rows, dtype=torch.bool, device=dev)
-         .index_fill_(0, torch.tensor(p, device=dev), True)
-         for p in queries["compas"]["q1"]]))
+    q1_mask = ref.pack_bits(mask_stack(queries["compas"]["q1"], ci_idx.datasets[csrc].n_rows))
+    q2_mask = ref.pack_bits(mask_stack(queries["compas"]["q2"], ci_idx.datasets[csink].n_rows))
+    k_hops = len(chain)
+    ops.reset_launch_counts()
+    unfused = {q: ops.batched_walk_unfused(mask, planes)
+               for q, mask, planes in (("q1", q1_mask, compas_fwd), ("q2", q2_mask, compas_bwd))}
+    torch.cuda.synchronize()
+    unfused_counts = ops.launch_counts()
+    check(unfused_counts == {"bitmatmul": 2 * k_hops, "bitset_rank": 2 * k_hops,
+                             "lineage_gather": 2 * k_hops},
+          f"unfused launches {unfused_counts}, expected {k_hops} x 3 per chain")
+    ops.reset_launch_counts()
+    fused = {q: ops.batched_walk(mask, planes)
+             for q, mask, planes in (("q1", q1_mask, compas_fwd), ("q2", q2_mask, compas_bwd))}
+    torch.cuda.synchronize()
+    fused_counts = ops.launch_counts()
+    check(fused_counts == {"batched_walk": 2}, f"fused launches {fused_counts}, expected 1 per chain")
+    for q in ("q1", "q2"):
+        check(torch.equal(unfused[q][0], fused[q][0]) and torch.equal(unfused[q][1], fused[q][1]),
+              f"Compas {q}: unfused != fused")
+    emit({"phase": "unfused_vs_fused", "hops": k_hops, "unfused_launch_counts": unfused_counts,
+          "fused_launch_counts": fused_counts, "byte_equal": True})
+
+    # the fused kernel against its plain version on the real Compas chain and
+    # on the Census chain with the plane cap raised
     for mask, planes in ((q1_mask, compas_fwd), (q2_mask, compas_bwd)):
         out, cnt = batched_walk_cuda(mask, planes)
         want_out, want_cnt = ref.batched_walk_ref(mask, planes)
         torch.cuda.synchronize()
         check(torch.equal(out, want_out) and torch.equal(cnt, want_cnt),
-              "kernel != plain on the Compas chain")
+              "batched_walk != plain on the Compas chain")
     si, ssrc, ssink = indexes["census"]
     n_census = si.datasets[ssrc].n_rows
     census_probe = (torch.rand(B, n_census, generator=gen, device=dev) < 0.01)
@@ -338,32 +551,127 @@ def main() -> int:
     want_out, want_cnt = ref.batched_walk_ref(cmask, census_planes)
     torch.cuda.synchronize()
     check(torch.equal(out, want_out) and torch.equal(cnt, want_cnt),
-          "kernel != plain on the Census-sized chain")
+          "batched_walk != plain on the Census-sized chain")
     emit({"phase": "kernel_vs_plain_real", "compas_hops": len(chain),
           "census_hops": len(census_planes), "census_rows": n_census,
           "max_abs_err": 0, "tolerance": 0})
     del census_planes, want_out, out
 
-    # -- 5. times -----------------------------------------------------------------
-    kernel_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
-    plain_ms = event_ms(lambda: ref.batched_walk_ref(q2_mask, compas_bwd), reps=5)
-    dense = [ref.unpack_bits(p, p.shape[1] * 32).to(torch.float16) for p in compas_bwd]
-    sel = ref.unpack_bits(q2_mask, compas_bwd[0].shape[0]).to(torch.float16)
+    # -- 8. calibration on the card (not installed) -----------------------------
+    t = time.perf_counter()
+    fitted = calibrate.calibrate(path=str(ROOT / "build" / "calibration_smoke.json"),
+                                 install=False, device=dev)
+    cal_s = time.perf_counter() - t
+    probe_plan = prov(ci_idx).source(csink).rows_batch(queries["compas"]["q2"]).backward() \
+        .to(csrc).plan()
+    check(ci_idx.session().explain(probe_plan)["constants"]["source"] == "default",
+          "calibration was installed")
+    emit({"phase": "calibration", "seconds": cal_s, "device": fitted.device,
+          "path": str(Path(fitted.path).relative_to(ROOT)),
+          "density_threshold": fitted.density_threshold,
+          "constants": {k: getattr(fitted, k) for k in (
+              "c_word_op", "c_spmm_flop", "c_spmm_overhead", "c_launch_overhead",
+              "peak_flops", "hbm_bw", "link_bw", "logic_word_ops")}})
+
+    # -- 9. times -----------------------------------------------------------------
+    def unpack16(words, n):
+        return ref.unpack_bits(words, n).to(torch.float16)
+
+    def bitmatmul_times(a, bb, plain_reps, plain_rounds):
+        """Kernel, plain and fp16 torch.matmul times and the bound of one
+        bitmatmul call; the bound counts the B rows any row of A selects
+        (read once), A in and C out, and one AND and one OR per selected B
+        word per row."""
+        k = bb.shape[0]
+        sel = ref.unpack_bits(a, k)
+        rows_read = int(sel.any(dim=0).sum())
+        bits = int(sel.sum())
+        nw = bb.shape[1]
+        moved = (a.numel() + rows_read * nw + a.shape[0] * nw) * 4
+        word_ops = 2 * bits * nw
+        dense_a, dense_b = unpack16(a, k), unpack16(bb, nw * 32)
+        row = {
+            "shape": {"A": list(a.shape), "B": list(bb.shape)},
+            "ms": event_ms(lambda: bitmatmul_cuda(a, bb)),
+            "plain_ms": event_ms(lambda: ref.bitmatmul_ref(a, bb), reps=plain_reps,
+                                 rounds=plain_rounds, warmup=1),
+            "library_ms": event_ms(lambda: torch.matmul(dense_a, dense_b), reps=plain_reps,
+                                   rounds=plain_rounds, warmup=1),
+            "bound_bytes": moved, "bound_word_ops": word_ops,
+            "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": word_ops / INT_OPS_PER_S * 1e3,
+        }
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        return row
+
+    compas_rel = bitplane["compas"].relation(csrc, csink)
+    bm_rows = {
+        "compas_probe": bitmatmul_times(q1_mask, compas_rel, 5, 7),
+        "compas_composition": bitmatmul_times(*compositions["compas"], 3, 5),
+        "census_composition": bitmatmul_times(*compositions["census"], 1, 3),
+    }
+    del compositions
+
+    # bitset_rank and lineage_gather at the shapes of the unfused Compas Q2
+    # chain's first hop
+    frontier = ops.bitplane_probe(q2_mask, compas_bwd[0])
+    fw = frontier.shape[1]
+    flat = frontier.reshape(-1)
+    ends = torch.arange(1, B + 1, dtype=torch.int32, device=dev) * (fw * 32) - 1
+    counts = torch.diff(bitset_rank_cuda(flat, ends),
+                        prepend=torch.zeros(1, dtype=torch.int32, device=dev))
+    rp = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    rp[1:] = torch.cumsum(counts, 0)
+    col = torch.nonzero(ref.unpack_bits(frontier, fw * 32))[:, 1].to(torch.int32)
+    md = max(int(counts.max()), 1)
+    colp = torch.cat([col, torch.full((md,), -1, dtype=torch.int32, device=dev)])
+    qs = torch.arange(B, dtype=torch.int32, device=dev)
+    rank_bytes = (flat.numel() + 2 * B) * 4
+    rank_ops = flat.numel() + B
+    rank_row = {
+        "shape": {"W": flat.numel(), "Q": B},
+        "ms": event_ms(lambda: bitset_rank_cuda(flat, ends)),
+        "plain_ms": event_ms(lambda: ref.bitset_rank_ref(flat, ends), reps=20),
+        "library_ms": None,
+        "bytes_ms": rank_bytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": rank_ops / POPC_PER_S * 1e3,
+    }
+    rank_row["bound_ms"] = max(rank_row["bytes_ms"], rank_row["ops_ms"])
+    rank_row["bound_by"] = "bytes" if rank_row["bytes_ms"] >= rank_row["ops_ms"] else "operations"
+    gather_bytes = (B + (B + 1) + int(counts.clamp(max=md).sum()) + B * md) * 4
+    gather_row = {
+        "shape": {"Q": B, "R": B, "nnz": col.numel(), "max_deg": md},
+        "ms": event_ms(lambda: lineage_gather_cuda(qs, rp, colp, md)),
+        "plain_ms": event_ms(lambda: ref.lineage_gather_ref(qs, rp, colp, max_deg=md), reps=20),
+        "library_ms": None,
+        "bytes_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 0.0,
+    }
+    gather_row["bound_ms"] = gather_row["bytes_ms"]
+    gather_row["bound_by"] = "bytes"
+
+    walk_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
+    walk_plain_ms = event_ms(lambda: ref.batched_walk_ref(q2_mask, compas_bwd), reps=5)
+    dense = [unpack16(p, p.shape[1] * 32) for p in compas_bwd]
+    sel16 = unpack16(q2_mask, compas_bwd[0].shape[0])
 
     def matmul_chain():
-        cur = sel
-        for j, plane in enumerate(dense):
+        cur = sel16
+        for plane in dense:
             cur = torch.matmul(cur[:, : plane.shape[0]], plane)
         return cur
 
-    library_ms = event_ms(matmul_chain, reps=5)
+    walk_library_ms = event_ms(matmul_chain, reps=5)
     del dense
     tiny_mask = torch.ones((1, 1), dtype=torch.int32, device=dev)
     tiny_plane = [torch.ones((1, 1), dtype=torch.int32, device=dev)]
     launch_floor_ms = event_ms(lambda: batched_walk_cuda(tiny_mask, tiny_plane))
+    unfused_ms = host_ms(lambda: ops.batched_walk_unfused(q2_mask, compas_bwd))
 
-    # bound: the plane rows some probe selects (read once), the masks in,
-    # the frontier and counts out; one AND and one OR per selected word per probe
+    # bound of the fused walk: the plane rows some probe selects (read once),
+    # the masks in, the frontier and counts out; one AND and one OR per
+    # selected word per probe
     cur = q2_mask
     plane_bytes = 0
     word_ops = 0
@@ -373,44 +681,81 @@ def main() -> int:
         word_ops += 2 * int(sel_bits.sum()) * plane.shape[1]
         cur = ref.bitmatmul_ref(cur, plane)
     io_bytes = (q2_mask.numel() + cur.numel() + len(compas_bwd) * B) * 4
-    bytes_ms = (plane_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = word_ops / INT_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    emit({"phase": "kernel_times", "card": card, "shape": {
-        "K": len(compas_bwd), "B": B, "rows": [p.shape[0] for p in compas_bwd],
-        "words": [p.shape[1] for p in compas_bwd]},
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library": "per-hop torch.matmul on 0/1 float16 (K calls)",
-        "bound_ms": bound_ms, "bound_bytes": plane_bytes + io_bytes,
-        "bound_word_ops": word_ops, "launch_floor_ms": launch_floor_ms,
-        "all_planes_bytes": sum(p.numel() * 4 for p in compas_bwd)})
+    walk_bytes_ms = (plane_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    walk_ops_ms = word_ops / INT_OPS_PER_S * 1e3
+    walk_bound_ms = max(walk_bytes_ms, walk_ops_ms)
+    emit({"phase": "kernel_times", "card": card,
+          "batched_walk": {
+              "shape": {"K": len(compas_bwd), "B": B, "rows": [p.shape[0] for p in compas_bwd],
+                        "words": [p.shape[1] for p in compas_bwd]},
+              "ms": walk_ms, "plain_ms": walk_plain_ms, "library_ms": walk_library_ms,
+              "library": "per-hop torch.matmul on 0/1 float16 (K calls)",
+              "bound_ms": walk_bound_ms, "bound_bytes": plane_bytes + io_bytes,
+              "bound_word_ops": word_ops, "launch_floor_ms": launch_floor_ms,
+              "unfused_host_ms": unfused_ms,
+              "all_planes_bytes": sum(p.numel() * 4 for p in compas_bwd)},
+          "bitmatmul": bm_rows,
+          "bitmatmul_library": "one torch.matmul of the unpacked 0/1 float16 operands",
+          "bitset_rank": rank_row, "lineage_gather": gather_row,
+          "no_library": "neither bitset_rank nor lineage_gather has a one-call PyTorch "
+                        "counterpart"})
 
-    # end-to-end latency (host clock, synchronized), and Q2 split into
-    # compiling the plan (probe masks built on the card) and running it
+    # end-to-end latency (host clock, synchronized): the walk session (fused
+    # kernel on), the default hop-cache session, and the bitplane hop-cache
     latency = {}
     for name, (idx, src, sink) in indexes.items():
-        qs = queries[name]
-        q2b = prov(idx).source(sink).rows_batch(qs["q2"]).backward().to(src)
+        qs_ = queries[name]
+        q2b = prov(idx).source(sink).rows_batch(qs_["q2"]).backward().to(src)
         plan = q2b.plan()
+        ws = walk_sessions[name]
         latency[name] = {
-            "q1_ms": host_ms(lambda: q1(idx, src, sink, qs["q1"])),
-            "q2_ms": host_ms(lambda: q2(idx, src, sink, qs["q2"])),
+            "walk_q1_ms": host_ms(lambda: q1(idx, src, sink, qs_["q1"], ws)),
+            "walk_q2_ms": host_ms(lambda: q2(idx, src, sink, qs_["q2"], ws)),
             "q2_plan_ms": host_ms(q2b.plan),
-            "q2_run_ms": host_ms(lambda: idx.session().run(plan)),
+            "walk_q2_run_ms": host_ms(lambda: ws.run(plan)),
+            "hopcache_q1_ms": host_ms(lambda: q1(idx, src, sink, qs_["q1"])),
+            "hopcache_q2_ms": host_ms(lambda: q2(idx, src, sink, qs_["q2"])),
+            "hopcache_q2_run_ms": host_ms(lambda: idx.session().run(plan)),
         }
+        if name in bitplane:
+            bs = QuerySession(idx, bitplane[name])    # relation composed: routes to it
+            latency[name]["bitplane_q1_ms"] = host_ms(lambda: q1(idx, src, sink, qs_["q1"], bs))
+            latency[name]["bitplane_q2_ms"] = host_ms(lambda: q2(idx, src, sink, qs_["q2"], bs))
+            check(bs.counters["hopcache"] == bs.counters["plans"], f"{name}: bitplane session walked")
     emit({"phase": "main_path_times", "card": card, "B": B, "latency": latency,
           "capture_s": capture_s, "main_path_max_memory_allocated_bytes": main_peak,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "seconds": time.perf_counter() - t_start})
 
-    emit({"kernels": [{
-        "name": "batched_walk", "route": "cuda",
-        "source": "src/repro_torch/csrc/batched_walk.cu",
-        "replaces": "src/repro/kernels/batched_walk.py:44",
-        "launches": main_launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-    }]})
+    bm = bm_rows["compas_probe"]
+    emit({"kernels": [
+        {"name": "batched_walk", "route": "cuda", "source": "src/repro_torch/csrc/batched_walk.cu",
+         "replaces": "src/repro/kernels/batched_walk.py:44",
+         "launches": main_counts.get("batched_walk", 0), "max_abs_err": walk_err,
+         "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
+         "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
+         "library_ms": walk_library_ms},
+        {"name": "bitmatmul", "route": "cuda", "source": "src/repro_torch/csrc/bitmatmul.cu",
+         "replaces": "src/repro/kernels/bitmatmul.py:37",
+         "launches": bitplane_counts.get("bitmatmul", 0), "max_abs_err": bm_err,
+         "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
+         "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
+        {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
+         "replaces": "src/repro/kernels/bitset_rank.py:27",
+         "launches": unfused_counts.get("bitset_rank", 0), "max_abs_err": rank_err,
+         "ms": rank_row["ms"], "plain_ms": rank_row["plain_ms"], "bound_ms": rank_row["bound_ms"],
+         "bound_by": rank_row["bound_by"], "library_ms": None},
+        {"name": "lineage_gather", "route": "cuda",
+         "source": "src/repro_torch/csrc/lineage_gather.cu",
+         "replaces": "src/repro/kernels/lineage_gather.py:34",
+         "launches": unfused_counts.get("lineage_gather", 0), "max_abs_err": gather_err,
+         "ms": gather_row["ms"], "plain_ms": gather_row["plain_ms"],
+         "bound_ms": gather_row["bound_ms"], "bound_by": gather_row["bound_by"],
+         "library_ms": None},
+    ]})
+    for k in ("batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"):
+        n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
+        check(n.get(k, 0) > 0, f"{k} was not launched on its path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

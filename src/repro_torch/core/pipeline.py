@@ -62,6 +62,7 @@ class ProvenanceIndex:
         self.ops: List[OpRecord] = []
         self.producer: Dict[str, int] = {}          # dataset -> producing op
         self.consumers: Dict[str, List[int]] = {}   # dataset -> consuming ops
+        self._composed = None                       # shared ComposedIndex
         self._session = None                        # shared QuerySession
         self._record_hooks: List = []               # capture observers
 
@@ -202,8 +203,17 @@ class ProvenanceIndex:
         return [d for d in produced if d not in consumed]
 
     def composed(self, **kwargs):
-        raise NotImplementedError(
-            "the composed hop-cache is not ported yet (ROADMAP A5)")
+        """The index's shared :class:`~repro_torch.core.hopcache.ComposedIndex`.
+
+        Created lazily; pass kwargs (e.g. ``memory_budget_bytes``) on first
+        call to configure it."""
+        from repro_torch.core.hopcache import ComposedIndex  # circular at module scope
+
+        if self._composed is None:
+            self._composed = ComposedIndex(self, **kwargs)
+        elif kwargs:
+            raise ValueError("composed() already configured; use index.composed()")
+        return self._composed
 
     def export(self, dataset_id: str):
         raise NotImplementedError(
@@ -211,8 +221,10 @@ class ProvenanceIndex:
 
     def session(self, **kwargs):
         """The index's shared :class:`~repro_torch.provenance.session.QuerySession`
-        behind ``repro_torch.provenance.prov(index)``.  Pass kwargs (e.g.
-        ``fused_walk``) on first call to configure it."""
+        behind ``repro_torch.provenance.prov(index)``.  It wraps
+        :meth:`composed`, so every caller probes the same composed
+        relations.  Pass kwargs (e.g. ``fused_walk``) on first call to
+        configure it."""
         from repro_torch.provenance.session import QuerySession  # circular at module scope
 
         if self._session is None:

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import (
-    bitmatmul_ref,
     pack_bits,
     popcount32,
     unpack_bits,
@@ -201,8 +201,11 @@ def bitplane_or_reduce(sel_words: torch.Tensor, plane: torch.Tensor,
                        n_mid: int) -> torch.Tensor:
     """(OR, AND)-contract packed selectors (B, ceil(n_mid/32)) against a
     packed relation (n_mid, W) -> (B, W): row b = OR of the plane rows whose
-    selector bit is set."""
-    return bitmatmul_ref(torch.atleast_2d(sel_words), plane[:n_mid])
+    selector bit is set.  The same contraction as
+    :func:`repro_torch.kernels.ops.bitmatmul`, and dispatched through it: a
+    CUDA operand launches the kernel, a CPU operand takes its plain version."""
+    sel = torch.atleast_2d(sel_words)[:, : (n_mid + 31) // 32]
+    return K.bitmatmul(sel, plane[:n_mid])
 
 
 def bitplane_popcount(words: torch.Tensor) -> int:
@@ -219,6 +222,9 @@ class SlotIdentity:
 
     n: int
 
+    def n_links(self) -> int:
+        return self.n
+
     def nbytes(self) -> int:
         return 0
 
@@ -232,6 +238,9 @@ class SlotGather:
     output ``o``, ``-1`` = no link — the op's own capture payload."""
 
     src: torch.Tensor  # int32 (n_out,)
+
+    def n_links(self) -> int:
+        return int(torch.count_nonzero(self.src >= 0))
 
     def nbytes(self) -> int:
         return _nbytes(self.src)
@@ -247,6 +256,9 @@ class SlotRange:
 
     start: int
     length: int
+
+    def n_links(self) -> int:
+        return self.length
 
     def nbytes(self) -> int:
         return 0
@@ -325,6 +337,7 @@ class ProvTensor:
         self._bpf: Optional[list] = None
         self._bpb: Optional[list] = None
         self._sg: Optional[list] = None  # memoized out->in gather per slot
+        self._slot_nnz: Optional[list] = None
 
     def __repr__(self) -> str:
         tag = "structured" if self.structured else "coo"
@@ -373,6 +386,24 @@ class ProvTensor:
             cols += [self.slot_gather(i) for i in range(self.k)]
             self._coo = torch.stack(cols, dim=1)
         return self._coo
+
+    # -- per-slot relation statistics (the cost model reads these) -----------
+    def slot_nnz(self, inp: int) -> int:
+        """nnz of the input-``inp`` -> output relation: links that are real
+        (not the -1 sentinel).  Memoized; structured slots answer off the
+        implicit form, nothing is materialized."""
+        if self._slot_nnz is None:
+            self._slot_nnz = [None] * self.k
+        if self._slot_nnz[inp] is None:
+            s = self.slot_structure(inp)
+            self._slot_nnz[inp] = s.n_links() if s is not None else \
+                int(torch.count_nonzero(self._coo[:, 1 + inp] >= 0))
+        return self._slot_nnz[inp]
+
+    def slot_density(self, inp: int) -> float:
+        """nnz / (rows * cols) of the input-``inp`` forward relation."""
+        cells = self.n_in[inp] * self.n_out
+        return self.slot_nnz(inp) / cells if cells else 0.0
 
     def _slot_pairs(self, inp: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Valid (out, in) link pairs of one slot, from whichever regime."""

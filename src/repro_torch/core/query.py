@@ -14,7 +14,7 @@ index's device.
   launch of the fused K-hop kernel (:func:`repro_torch.kernels.ops.batched_walk`).
 
 The attribute-level walkers (Q3/Q4/Q7/Q8) and the legacy ``q*`` shims
-belong to a later slice (ROADMAP A5).
+belong to a later slice (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ __all__ = [
     "forward_record_masks_batch",
     "backward_record_masks_batch",
     "fused_walk_record_masks_batch",
+    "is_probe_batch",
 ]
 
 
@@ -61,6 +62,18 @@ def _as_mask(rows, n: int, device) -> torch.Tensor:
     m = torch.zeros(n, dtype=torch.bool, device=device)
     m[idx] = True
     return m
+
+
+def is_probe_batch(rows) -> bool:
+    """A batch is a 2-D mask stack or a non-empty list/tuple of probe sets."""
+    if isinstance(rows, (np.ndarray, torch.Tensor)):
+        return rows.ndim == 2
+    if isinstance(rows, (list, tuple)):
+        return len(rows) > 0 and all(
+            isinstance(r, (list, tuple, np.ndarray, torch.Tensor, set, frozenset, range))
+            for r in rows
+        )
+    return False
 
 
 def _as_mask_batch(rows_batch, n: int, device) -> torch.Tensor:

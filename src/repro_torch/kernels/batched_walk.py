@@ -29,17 +29,8 @@ SMEM_BYTES = 232448          # dynamic shared memory one block may use on sm_90
 MAX_HOPS = 64                # kMaxHops of the kernel's parameter table
 _BLOCKS_B = (8, 4, 2, 1)     # probe blocks the kernel is instantiated for
 
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("batched_walk")
-    fn = lib.batched_walk_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, ctypes.POINTER(ctypes.c_longlong), i, p, i, p, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.batched_walk_error_string.argtypes = [ctypes.c_int]
-        lib.batched_walk_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _I, _I, ctypes.POINTER(ctypes.c_longlong), _I, _P, _I, _P, _I, _I, _P]
 
 
 def pick_block_b(w_max: int) -> int:
@@ -58,16 +49,7 @@ def batched_walk_cuda(mask_bits: torch.Tensor,
                       planes: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA int32 operands already checked for chain
     consistency.  Returns ``(out_bits (B, W_K) int32, counts (K, B) int32)``."""
-    dev = mask_bits.device
-    if torch.cuda.get_device_capability(dev) < (9, 0):
-        raise RuntimeError(
-            f"batched_walk kernel is built for sm_90a; {torch.cuda.get_device_name(dev)} "
-            f"has capability {torch.cuda.get_device_capability(dev)}")
-    for t in (mask_bits, *planes):
-        if t.device != dev or t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(
-                "batched_walk kernel takes contiguous 2-D int32 tensors on one "
-                f"device; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    dev = build.check_operands("batched_walk", (mask_bits, *planes), [2] * (1 + len(planes)))
     b, mask_words = mask_bits.shape
     k = len(planes)
     if k > MAX_HOPS:
@@ -80,12 +62,9 @@ def batched_walk_cuda(mask_bits: torch.Tensor,
     if b == 0:
         return out, counts
     table = [v for p in planes for v in (p.data_ptr(), p.shape[0], p.shape[1])]
-    lib = _lib()
-    rc = lib.batched_walk_launch(
+    rc = build.launcher("batched_walk", _ARGTYPES)(
         mask_bits.data_ptr(), b, mask_words, (ctypes.c_longlong * len(table))(*table), k,
         out.data_ptr(), out_words, counts.data_ptr(), bb, w_max,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("batched_walk kernel launch failed: "
-                           + lib.batched_walk_error_string(rc).decode())
+    build.check_launch("batched_walk", rc)
     return out, counts

@@ -18,7 +18,10 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "launcher",
+           "check_launch", "check_operands"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -80,3 +83,42 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA source csrc/{name}.cu")
         _LOADED[name] = ctypes.CDLL(str(libs[name]))
     return _LOADED[name]
+
+
+def launcher(name: str, argtypes: list):
+    """``<name>_launch`` of ``csrc/<name>.cu`` with its ctypes signature set:
+    ``argtypes`` (``c_void_p`` for pointers and the stream, ``c_int`` for
+    ints), returning the ``cudaError_t`` code as an int."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return fn
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise unless the launch returned ``cudaSuccess``."""
+    if rc != 0:
+        msg = getattr(load(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
+
+
+def check_operands(name: str, tensors, ndims) -> torch.device:
+    """The one CUDA device of ``tensors``, after checking that it has
+    compute capability (9, 0) and that every tensor lies on it, is int32,
+    contiguous and of the dimension given in ``ndims``."""
+    dev = tensors[0].device
+    if torch.cuda.get_device_capability(dev) < (9, 0):
+        raise RuntimeError(
+            f"{name} kernel is built for sm_90a; {torch.cuda.get_device_name(dev)} "
+            f"has capability {torch.cuda.get_device_capability(dev)}")
+    for t, nd in zip(tensors, ndims):
+        if t.device != dev or t.dtype != torch.int32 or t.dim() != nd or not t.is_contiguous():
+            raise ValueError(
+                f"{name} kernel takes contiguous {nd}-D int32 tensors on one device; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return dev

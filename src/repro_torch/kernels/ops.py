@@ -10,7 +10,9 @@ Dispatch is by the device of the operands, never by a flag:
 
 ``launch_counts()`` counts the dispatches of each entry: on CUDA the launch
 of the kernel, counted right after it was accepted; on the CPU the call of
-its plain version, the CPU's stand-in for the kernel.
+its plain version, the CPU's stand-in for the kernel.  ``bitplane_probe``
+is the same contraction as ``bitmatmul`` and counts as a ``bitmatmul``
+launch.
 """
 from __future__ import annotations
 
@@ -20,8 +22,20 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.batched_walk import batched_walk_cuda
+from repro_torch.kernels.bitmatmul import bitmatmul_cuda
+from repro_torch.kernels.bitset_rank import bitset_rank_cuda
+from repro_torch.kernels.lineage_gather import lineage_gather_cuda
 
-__all__ = ["batched_walk", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "bitmatmul",
+    "bitplane_probe",
+    "bitset_rank",
+    "lineage_gather",
+    "batched_walk",
+    "batched_walk_unfused",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 _LAUNCHES: Dict[str, int] = {}
 
@@ -39,6 +53,83 @@ def reset_launch_counts() -> None:
     _LAUNCHES.clear()
 
 
+def _device(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device of the operands; raises for several devices and for
+    a device that is neither the CPU nor CUDA."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name} operands lie on several devices: {devices}")
+    (dev,) = devices
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no kernel for device {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# bitmatmul: the hop-cache's composition and probe contraction
+# ---------------------------------------------------------------------------
+def bitmatmul(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
+    """(OR, AND)-compose packed relations: A (M, ceil(K/32)) x B (K, Nw) ->
+    (M, Nw) int32.  Bits of A past B's K rows select nothing."""
+    m, kw = a_bits.shape
+    k, nw = b_bits.shape
+    if not ((kw - 1) * 32 < k <= kw * 32):
+        raise ValueError(f"contraction mismatch: A packs {kw * 32} cols, B has {k} rows")
+    dev = _device("bitmatmul", a_bits, b_bits)
+    if dev.type == "cpu":
+        _note_launch("bitmatmul")
+        return ref.bitmatmul_ref(a_bits, b_bits)
+    out = bitmatmul_cuda(a_bits.contiguous(), b_bits.contiguous())
+    _note_launch("bitmatmul")
+    return out
+
+
+def bitplane_probe(mask_bits: torch.Tensor, plane_bits: torch.Tensor) -> torch.Tensor:
+    """Batched lineage probe of a composed relation (the hop-cache hot
+    path): ``mask_bits`` (B, ceil(K/32)) packs B row-selector sets, and row
+    b of the result packs the union of the ``plane_bits`` (K, Nw) rows that
+    probe b selects.  The same contraction as :func:`bitmatmul`."""
+    return bitmatmul(mask_bits, plane_bits)
+
+
+# ---------------------------------------------------------------------------
+# bitset_rank / lineage_gather: the per-hop baseline's rank and gather
+# ---------------------------------------------------------------------------
+def bitset_rank(words: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Batched inclusive rank over one packed bitset: ``words`` (W,) int32,
+    ``positions`` (Q,) int32 -> (Q,) int32; ``pos < 0`` ranks 0."""
+    if words.dim() != 1 or positions.dim() != 1:
+        raise ValueError("bitset_rank takes a 1-D bitset and 1-D positions")
+    dev = _device("bitset_rank", words, positions)
+    if dev.type == "cpu":
+        _note_launch("bitset_rank")
+        return ref.bitset_rank_ref(words, positions)
+    out = bitset_rank_cuda(words.contiguous(), positions.to(torch.int32).contiguous())
+    _note_launch("bitset_rank")
+    return out
+
+
+def lineage_gather(row_ptr: torch.Tensor, col_idx: torch.Tensor, queries: torch.Tensor,
+                   *, max_deg: int) -> torch.Tensor:
+    """Batched CSR probe -> (Q, max(max_deg, 1)) int32 neighbour table, -1
+    past each row's degree.  ``col_idx`` is padded with ``max_deg`` -1
+    sentinels first, as ``repro``'s wrapper pads it."""
+    md = max(int(max_deg), 1)
+    dev = _device("lineage_gather", row_ptr, col_idx, queries)
+    col_p = torch.cat([col_idx.to(torch.int32),
+                       torch.full((md,), -1, dtype=torch.int32, device=dev)])
+    if dev.type == "cpu":
+        _note_launch("lineage_gather")
+        return ref.lineage_gather_ref(queries, row_ptr, col_p, max_deg=md)
+    out = lineage_gather_cuda(queries.to(torch.int32).contiguous(),
+                              row_ptr.to(torch.int32).contiguous(), col_p, md)
+    _note_launch("lineage_gather")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# batched_walk: the fused K-hop record probe, and its per-hop baseline
+# ---------------------------------------------------------------------------
 def _check_walk_chain(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]) -> None:
     kw = mask_bits.shape[1]
     for j, plane in enumerate(planes):
@@ -63,15 +154,46 @@ def batched_walk(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]):
     if not planes:
         raise ValueError("batched_walk needs at least one hop")
     _check_walk_chain(mask_bits, planes)
-    devices = {t.device for t in (mask_bits, *planes)}
-    if len(devices) != 1:
-        raise ValueError(f"batched_walk operands lie on several devices: {devices}")
-    (dev,) = devices
+    dev = _device("batched_walk", mask_bits, *planes)
     if dev.type == "cpu":
         _note_launch("batched_walk")
         return ref.batched_walk_ref(mask_bits, planes)
-    if dev.type != "cuda":
-        raise ValueError(f"batched_walk has no kernel for device {dev}")
     out = batched_walk_cuda(mask_bits, planes)
     _note_launch("batched_walk")
     return out
+
+
+def batched_walk_unfused(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor],
+                         max_deg=None):
+    """The per-hop baseline the fused kernel replaces: K x 3 launches.
+
+    Per hop: :func:`bitplane_probe` (the select-OR contraction),
+    :func:`bitset_rank` over the flattened frontier bitset (per-probe
+    frontier sizes as rank differences at row boundaries), and
+    :func:`lineage_gather` of the frontier's padded neighbour table from its
+    CSR, rebuilt on the operands' device each hop.  Returns what
+    :func:`batched_walk` returns, byte for byte.
+    """
+    planes = list(planes)
+    if not planes:
+        raise ValueError("batched_walk needs at least one hop")
+    _check_walk_chain(mask_bits, planes)
+    dev = _device("batched_walk_unfused", mask_bits, *planes)
+    cur = mask_bits
+    b = cur.shape[0]
+    all_counts = []
+    for plane in planes:
+        cur = bitplane_probe(cur, plane)
+        w = cur.shape[1]
+        ends = torch.arange(1, b + 1, dtype=torch.int32, device=dev) * (w * 32) - 1
+        ranks = bitset_rank(cur.reshape(-1), ends)
+        counts = torch.diff(ranks, prepend=torch.zeros(1, dtype=torch.int32, device=dev))
+        all_counts.append(counts.to(torch.int32))
+        # the frontier's CSR: row b lists probe b's set bits, in order
+        row_ptr = torch.zeros(b + 1, dtype=torch.int32, device=dev)
+        row_ptr[1:] = torch.cumsum(counts, dim=0)
+        col_idx = torch.nonzero(ref.unpack_bits(cur, w * 32))[:, 1].to(torch.int32)
+        md = max_deg if max_deg is not None else (int(counts.max()) if b else 1)
+        lineage_gather(row_ptr, col_idx, torch.arange(b, dtype=torch.int32, device=dev),
+                       max_deg=md)
+    return cur, torch.stack(all_counts, dim=0)

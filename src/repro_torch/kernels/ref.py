@@ -19,6 +19,8 @@ __all__ = [
     "unpack_bits",
     "popcount32",
     "bitmatmul_ref",
+    "bitset_rank_ref",
+    "lineage_gather_ref",
     "batched_walk_ref",
 ]
 
@@ -76,6 +78,41 @@ def bitmatmul_ref(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return pack_bits(c)
+
+
+def bitset_rank_ref(words: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Inclusive rank oracle over one packed bitset (W,): ``rank(p) =
+    popcount(bits[0..p])``, ``rank(p < 0) = 0``, and a position past the
+    last bit reads the last bit (the rank of the whole set).  int32 (Q,)."""
+    pos = positions.to(torch.int64)
+    n_bits = 32 * words.shape[0]
+    if n_bits == 0:
+        return torch.zeros_like(pos, dtype=torch.int32)
+    prefix = torch.cumsum(popcount32(words).to(torch.int64), dim=0)
+    p = pos.clamp(0, n_bits - 1)
+    w, b = p // 32, p % 32
+    masked = (words[w].to(torch.int64) & 0xFFFFFFFF) & ((1 << (b + 1)) - 1)
+    before = torch.where(w > 0, prefix[(w - 1).clamp(min=0)], torch.zeros_like(w))
+    rank = before + popcount32(masked).to(torch.int64)
+    return torch.where(pos < 0, torch.zeros_like(rank), rank).to(torch.int32)
+
+
+def lineage_gather_ref(queries: torch.Tensor, row_ptr: torch.Tensor,
+                       col_idx: torch.Tensor, *, max_deg: int) -> torch.Tensor:
+    """Padded (Q, max_deg) int32 neighbour table oracle: row q holds the
+    first ``max_deg`` entries of CSR row ``queries[q]`` and -1 after them; a
+    query outside ``[0, R)`` gets a row of -1."""
+    q = queries.to(torch.int64)
+    n_rows = row_ptr.shape[0] - 1
+    valid = (q >= 0) & (q < n_rows)
+    qs = torch.where(valid, q, torch.zeros_like(q))
+    starts = row_ptr[qs].to(torch.int64)
+    degs = torch.where(valid, row_ptr[qs + 1].to(torch.int64) - starts, torch.zeros_like(q))
+    lane = torch.arange(max_deg, dtype=torch.int64, device=q.device)[None, :]
+    live = lane < degs[:, None]
+    pos = torch.where(live, starts[:, None] + lane, torch.zeros_like(lane))
+    vals = col_idx[pos] if col_idx.numel() else torch.zeros_like(pos, dtype=torch.int32)
+    return torch.where(live, vals.to(torch.int32), torch.full_like(pos, -1, dtype=torch.int32))
 
 
 def batched_walk_ref(mask_bits: torch.Tensor, planes) -> tuple:

@@ -96,6 +96,21 @@ class QueryPlan:
     def n_probes(self) -> int:
         return 0 if self.rows is None else int(self.rows.shape[0])
 
+    def describe(self) -> str:
+        """Compact human-readable spelling (logs / EXPLAIN output)."""
+        bits = [self.kind, self.direction, f"{self.source}->{self.target}"]
+        if self.rows is not None:
+            bits.append(f"B={self.rows.shape[0]}")
+        if self.attrs is not None:
+            bits.append("attrs")
+        if self.how:
+            bits.append("how")
+        if self.via:
+            bits.append(f"via={self.via}")
+        if self.anchor:
+            bits.append(f"anchor={self.anchor}")
+        return " ".join(bits)
+
     def fuse_key(self) -> Tuple:
         """Plans with equal keys answer from ONE fused physical pass.
 

@@ -1,23 +1,37 @@
 """QuerySession — the planner/executor behind the lazy builder.
 
-A session owns the physical machinery for one :class:`ProvenanceIndex` and
-picks a strategy per :class:`QueryPlan`:
+A session owns the physical machinery for one :class:`ProvenanceIndex`:
+
+* the **per-op walk** (:mod:`repro_torch.core.query`), with the fused K-hop
+  kernel for linear chains;
+* the **composed hop-cache** (:class:`repro_torch.core.hopcache.ComposedIndex`,
+  shared with every other session on the index via
+  ``ProvenanceIndex.composed()``), whose relations sum over all producer
+  paths of the DAG;
+
+and picks between them per :class:`QueryPlan`:
 
 ====================  ====================================================
 plan shape            strategy
 ====================  ====================================================
 ``transformations``   ``meta``: a metadata scan, no tensor touched (Q9)
-record, no ``how``    ``walk``; a linear chain goes to the fused K-hop
-                      kernel when ``fused_walk`` is on (Q1/Q2), a diamond
-                      falls back to the per-op walk
-record, ``how``       ``walk``: hop traces live on the per-op pass (Q5/Q6)
-co-queries            ``walk`` (Q10/Q11)
+``how``               ``walk``: hop traces live on the per-op pass (Q5/Q6)
+record-level          ``hopcache``: a composed-relation probe when the
+(Q1/Q2, Q10/Q11)      relation is already cached, or when the cost model
+                      estimates amortized compose-then-probe under the
+                      walk; ``walk`` otherwise, where a linear chain goes
+                      to the fused K-hop kernel when ``fused_walk`` is on
 ====================  ====================================================
 
-``fused_walk=None`` resolves to True iff the index lies on a CUDA device.
-The composed hop-cache (``use_hopcache=True``) and attribute-level
-``cells`` plans (Q3/Q4/Q7/Q8) belong to a later slice (ROADMAP A5) and
-raise ``NotImplementedError``.
+Record-level routing is driven by :class:`repro_torch.core.costmodel.CostModel`
+(shared with the hop-cache): per-pair chain statistics feed an estimated
+walk cost against composition cost amortized over the cumulative probe
+demand seen for the pair.  The legacy ``hopcache_min_batch`` batch-size
+heuristic is DEPRECATED but still honored when passed explicitly (with a
+``DeprecationWarning``).  ``use_hopcache=True`` is the default, as in
+``repro``; ``fused_walk=None`` resolves to True iff the index lies on a
+CUDA device.  Attribute-level ``cells`` plans (Q3/Q4/Q7/Q8) raise
+``NotImplementedError`` (ROADMAP A5b).
 
 ``run_many`` **fuses** submitted plans that share a fuse key into ONE
 pass: the probe mask stacks concatenate along the batch axis, a single
@@ -27,11 +41,13 @@ submission order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import query as Q
+from repro_torch.core.costmodel import constants_provenance
 from repro_torch.provenance.plan import QueryPlan
 
 __all__ = ["QuerySession"]
@@ -42,34 +58,140 @@ def _flatnonzeros(mask_stack: torch.Tensor) -> List[torch.Tensor]:
 
 
 class QuerySession:
-    """Planner + executor over one index."""
+    """Planner + executor over one index; share one per serving tier."""
 
-    def __init__(self, index, *, use_hopcache: bool = False,
-                 fused_walk: Optional[bool] = None) -> None:
-        if use_hopcache:
-            raise NotImplementedError(
-                "the composed hop-cache is not ported yet (ROADMAP A5); "
-                "use_hopcache=True is unavailable")
+    def __init__(
+        self,
+        index,
+        composed=None,
+        *,
+        use_hopcache: bool = True,
+        fused_walk: Optional[bool] = None,
+        hopcache_min_batch: Optional[int] = None,
+    ) -> None:
         self.index = index
+        self.composed = composed if composed is not None else index.composed()
+        self.use_hopcache = use_hopcache
         # tri-state: None -> the fused kernel walk iff the index is on CUDA;
         # True forces it (the plain version answers on the CPU), False disables
         self.fused_walk = fused_walk
+        if hopcache_min_batch is not None:
+            warnings.warn(
+                "hopcache_min_batch is deprecated: the QuerySession now "
+                "routes record-level plans with a cost model (see "
+                "repro_torch.core.costmodel); passing hopcache_min_batch keeps "
+                "the legacy batch-size heuristic for this session.",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            hopcache_min_batch = int(hopcache_min_batch)
+        self.hopcache_min_batch = hopcache_min_batch
+        # shared with the hop-cache so chain statistics are computed once
+        self.costmodel = self.composed.costmodel
         self.counters: Dict[str, int] = {
             "plans": 0,
             "walk": 0,
+            "hopcache": 0,
             "fused_walk": 0,
             "meta": 0,
             "fused_groups": 0,
             "fused_plans": 0,
         }
 
-    def _strategy(self, plan: QueryPlan) -> str:
+    # -- planning --------------------------------------------------------------
+    def _plan_pairs(self, plan: QueryPlan) -> Optional[List[Tuple[str, str]]]:
+        """EVERY (upstream, downstream) relation the hop-cache strategy would
+        probe for this plan — two legs for the co-queries, matching their
+        executors — or None when the plan cannot route through the
+        hop-cache."""
+        if plan.kind == "record":
+            return [(plan.source, plan.target) if plan.direction == "fwd"
+                    else (plan.target, plan.source)]
+        if plan.kind == "co_contributory":
+            if plan.via is None:
+                return None  # per-probe via needs the walk's reach map
+            return [(plan.source, plan.via), (plan.target, plan.via)]
+        # co_dependency: back-probe (d1, d2) then forward-probe (d1, d3)
+        return [(plan.anchor, plan.source), (plan.anchor, plan.target)]
+
+    def _choose(self, plan: QueryPlan, note: bool) -> Optional[Dict[str, object]]:
+        """The cost model's verdict for a cost-routable plan — summed over
+        every relation leg the hopcache strategy would compose — or None
+        when the decision never reaches the cost model."""
+        if self.hopcache_min_batch is not None:
+            return None
+        pairs = self._plan_pairs(plan)
+        if pairs is None:
+            return None
+        uncached = [p for p in pairs if not self.composed.contains(*p)]
+        if not uncached:
+            return None  # every leg already composed: contains-path decides
+        probe_rows = (float(plan.rows.sum()) / max(plan.n_probes, 1)
+                      if plan.rows is not None else 1.0)
+        legs = [
+            self.costmodel.choose(
+                p[0], p[1], plan.n_probes, probe_rows, note=note,
+                budget_bytes=self.composed.memory_budget_bytes)
+            for p in uncached
+        ]
+        walk = sum(leg["walk_ns"] for leg in legs)
+        hopcache = sum(leg["hopcache_ns"] for leg in legs)
+        return {
+            "strategy": "hopcache" if hopcache < walk else "walk",
+            "walk_ns": walk,
+            "hopcache_ns": hopcache,
+            "compose_ns": sum(leg["compose_ns"] for leg in legs),
+            "demand": min(leg["demand"] for leg in legs),
+            "retainable": all(leg["retainable"] for leg in legs),
+            # every leg estimated implicit: the hop-cache would hold this
+            # plan's relations as gather arrays, not CSRs/bitplanes
+            "structured": all(bool(leg.get("structured")) for leg in legs),
+            "legs": legs if len(legs) > 1 else None,
+        }
+
+    def _strategy(self, plan: QueryPlan, note: bool = True) -> str:
         if plan.kind == "transformations":
             return "meta"
         if plan.kind == "cells":
             raise NotImplementedError(
-                "attribute-level (cells) plans are not ported yet (ROADMAP A5)")
-        return "walk"
+                "attribute-level (cells) plans are not ported yet (ROADMAP A5b)")
+        if plan.how or not self.use_hopcache:
+            return "walk"  # hop traces live on the walk
+        pairs = self._plan_pairs(plan)
+        if pairs is None:
+            return "walk"
+        if all(self.composed.contains(*p) for p in pairs):
+            return "hopcache"  # relations already composed: probe them
+        if self.hopcache_min_batch is not None:  # deprecated legacy heuristic
+            return "hopcache" if plan.n_probes >= self.hopcache_min_batch else "walk"
+        return self._choose(plan, note)["strategy"]
+
+    def explain(self, plan: QueryPlan) -> Dict[str, object]:
+        """The planner's choice for ``plan``, without executing it (and
+        without advancing the cost model's per-pair demand counters).
+        Includes the cost model's estimates when they decided the routing.
+        """
+        out: Dict[str, object] = {"plan": plan.describe()}
+        cost = None
+        if plan.kind not in ("transformations", "cells") and not plan.how \
+                and self.use_hopcache:
+            cost = self._choose(plan, note=False)
+        if cost is not None:
+            out["strategy"] = cost["strategy"]
+            out["cost"] = cost
+        else:
+            out["strategy"] = self._strategy(plan, note=False)
+        pairs = None
+        if plan.kind not in ("transformations", "cells"):
+            pairs = self._plan_pairs(plan)
+        if pairs is not None:
+            out["residency"] = [
+                {"pair": p, "state": self.composed.residency(*p) or "uncomposed"}
+                for p in pairs
+            ]
+        # where the routing constants came from (default vs calibration file)
+        out["constants"] = constants_provenance()
+        return out
 
     def _fused_walk_on(self) -> bool:
         if self.fused_walk is not None:
@@ -124,24 +246,40 @@ class QuerySession:
                 results[i] = chunk if p.batched else chunk[0]
         return results
 
+    def run_masks(self, plan: QueryPlan) -> torch.Tensor:
+        """Execute a plain record-level plan and return the RAW ``(B,
+        n_target)`` boolean mask stack — no per-probe index conversion.
+        Routing and counters are identical to :meth:`run` (they share
+        :meth:`_record_masks`, the one record executor)."""
+        if plan.kind != "record" or plan.how:
+            raise ValueError("run_masks handles plain record plans only")
+        self.counters["plans"] += 1
+        strategy = self._strategy(plan)
+        self.counters[strategy] += 1
+        return self._record_masks(plan, strategy)
+
     # -- executors (each returns one payload per probe) -------------------------
     def _execute(self, plan: QueryPlan) -> List:
         strategy = self._strategy(plan)
         self.counters[strategy] += 1
         if plan.kind == "record":
-            return self._exec_record(plan)
+            return self._exec_record(plan, strategy)
         if plan.kind == "co_contributory":
-            return self._exec_co_contributory(plan)
+            return self._exec_co_contributory(plan, strategy)
         if plan.kind == "co_dependency":
-            return self._exec_co_dependency(plan)
+            return self._exec_co_dependency(plan, strategy)
         raise ValueError(f"unexpected plan kind {plan.kind!r}")
 
     def _empty(self, plan: QueryPlan) -> torch.Tensor:
         return torch.zeros((plan.n_probes, self.index.datasets[plan.target].n_rows),
                            dtype=torch.bool, device=self.index.device)
 
-    def _record_masks(self, plan: QueryPlan) -> torch.Tensor:
-        """The plain-record executor: (B, n_target) bool."""
+    def _record_masks(self, plan: QueryPlan, strategy: str) -> torch.Tensor:
+        """The one plain-record executor: (B, n_target) bool per strategy."""
+        if strategy == "hopcache":
+            if plan.direction == "fwd":
+                return self.composed.probe_forward(plan.rows, plan.source, plan.target)
+            return self.composed.probe_backward(plan.rows, plan.source, plan.target)
         if self._fused_walk_on():
             fused = Q.fused_walk_record_masks_batch(
                 self.index, plan.source, plan.target, plan.rows, plan.direction)
@@ -153,17 +291,21 @@ class QuerySession:
         masks = walker(self.index, plan.source, plan.rows)
         return masks.get(plan.target, self._empty(plan))
 
-    def _exec_record(self, plan: QueryPlan) -> List:
+    def _exec_record(self, plan: QueryPlan, strategy: str) -> List:
         if not plan.how:
-            return _flatnonzeros(self._record_masks(plan))
+            return _flatnonzeros(self._record_masks(plan, strategy))
+        # how-traces only live on the walk (see _strategy)
         walker = (Q.forward_record_masks_batch if plan.direction == "fwd"
                   else Q.backward_record_masks_batch)
         masks, hops = walker(self.index, plan.source, plan.rows, collect_hops=True)
         out = masks.get(plan.target, self._empty(plan))
         return list(zip(_flatnonzeros(out), hops))
 
-    def _exec_co_contributory(self, plan: QueryPlan) -> List:
+    def _exec_co_contributory(self, plan: QueryPlan, strategy: str) -> List:
         d1, d2, via = plan.source, plan.target, plan.via
+        if strategy == "hopcache":
+            via_masks = self.composed.probe_forward(plan.rows, d1, via)
+            return _flatnonzeros(self.composed.probe_backward(via_masks, via, d2))
         B = plan.n_probes
         fwd = Q.forward_record_masks_batch(self.index, d1, plan.rows)
         empty = torch.zeros(0, dtype=torch.int64, device=self.index.device)
@@ -182,8 +324,11 @@ class QuerySession:
                 results[b] = torch.nonzero(back[d2][i]).reshape(-1)
         return results
 
-    def _exec_co_dependency(self, plan: QueryPlan) -> List:
+    def _exec_co_dependency(self, plan: QueryPlan, strategy: str) -> List:
         d2, d1, d3 = plan.source, plan.anchor, plan.target
+        if strategy == "hopcache":
+            anc = self.composed.probe_backward(plan.rows, d2, d1)
+            return _flatnonzeros(self.composed.probe_forward(anc, d1, d3))
         empty = [torch.zeros(0, dtype=torch.int64, device=self.index.device)] * plan.n_probes
         back = Q.backward_record_masks_batch(self.index, d2, plan.rows)
         if d1 not in back or not bool(back[d1].any()):
@@ -205,3 +350,10 @@ class QuerySession:
             }
             for op in self.index.upstream_ops(plan.source)
         ]
+
+    # -- introspection ----------------------------------------------------------
+    def stats(self) -> Dict:
+        """Planner counters + the shared hop-cache's counters
+        (hits/misses/evictions/bytes); ``index`` names the owning index."""
+        return {"index": self.index.name, "planner": dict(self.counters),
+                "hopcache": self.composed.stats()}

@@ -299,5 +299,6 @@ def test_index_rejects_tables_on_another_device():
         track(t, idx)
     with pytest.raises(NotImplementedError, match="A7"):
         ProvenanceIndex("y", device=CPU, spill=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        idx.composed()
+    with pytest.raises(NotImplementedError, match="A7"):
+        ProvenanceIndex("z", device=CPU).composed(spill=True)
+    assert idx.composed() is idx.composed() and idx.composed().device == idx.device

@@ -208,3 +208,175 @@ def test_batched_walk_property(hops, seed):
     (got_out, got_cnt), (want_out, want_cnt) = _walk_both(mask, planes)
     np.testing.assert_array_equal(_u32(got_out), want_out)
     np.testing.assert_array_equal(got_cnt.numpy(), want_cnt)
+
+
+# ---------------------------------------------------------------------------
+# bitmatmul / bitplane_probe: the hop-cache's contraction
+# ---------------------------------------------------------------------------
+def _bits_past_k(a: np.ndarray, k: int) -> np.ndarray:
+    """A copy of packed A with every bit past column k of the last word set."""
+    dirty = a.copy()
+    if k % 32:
+        dirty[:, -1] |= np.uint32((0xFFFFFFFF << (k % 32)) & 0xFFFFFFFF)
+    return dirty
+
+
+@pytest.mark.parametrize("m,k,n,density", [(1, 1, 1, 0.5), (5, 33, 70, 0.3), (9, 64, 31, 0.1),
+                                           (16, 100, 40, 0.0), (3, 31, 129, 0.5)])
+def test_bitmatmul_matches_interpret_mode_pallas_and_dense(m, k, n, density):
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    dense_a = rng.random((m, k)) < density
+    dense_b = rng.random((k, n)) < density
+    a, b = _pack_np(dense_a), _pack_np(dense_b)
+    got = TK.bitmatmul(_to_port(a), _to_port(b))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, (n + 31) // 32)
+    want = np.asarray(RK.bitmatmul(jnp.asarray(a), jnp.asarray(b), block_m=8, block_nw=8,
+                                   block_k=32, interpret=True, use_pallas=True))
+    np.testing.assert_array_equal(_u32(got), want)
+    np.testing.assert_array_equal(_u32(got), _pack_np((dense_a.astype(int) @ dense_b) > 0))
+    # bits of A past K select nothing
+    dirty = TK.bitmatmul(_to_port(_bits_past_k(a, k)), _to_port(b))
+    np.testing.assert_array_equal(dirty.numpy(), got.numpy())
+
+
+def test_bitplane_probe_is_bitmatmul_and_counts_one_launch():
+    rng = np.random.default_rng(8)
+    a = _pack_np(rng.random((7, 45)) < 0.2)
+    b = _pack_np(rng.random((45, 90)) < 0.2)
+    TK.reset_launch_counts()
+    got = TK.bitplane_probe(_to_port(a), _to_port(b))
+    assert TK.launch_counts() == {"bitmatmul": 1}
+    np.testing.assert_array_equal(_u32(got), RP.bitplane_or_reduce(a, b, 45))
+    TK.reset_launch_counts()
+
+
+def test_bitmatmul_contraction_mismatch_raises():
+    with pytest.raises(ValueError, match="contraction"):
+        TK.bitmatmul(torch.zeros((2, 2), dtype=torch.int32), torch.zeros((20, 3), dtype=torch.int32))
+
+
+@given(st.integers(1, 12), st.integers(1, 100), st.integers(1, 100), st.integers(0, 2**31 - 1))
+@settings(max_examples=25, deadline=None)
+def test_bitmatmul_property(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    density = float(rng.choice([0.0, 0.05, 0.5]))
+    a = _pack_np(rng.random((m, k)) < density)
+    b = _pack_np(rng.random((k, n)) < density)
+    got = TK.bitmatmul(_to_port(_bits_past_k(a, k)), _to_port(b))
+    np.testing.assert_array_equal(_u32(got), RP.bitplane_or_reduce(a, b, k))
+
+
+# ---------------------------------------------------------------------------
+# bitset_rank: inclusive rank over one packed bitset
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_bits", [1, 31, 32, 33, 100, 1000])
+def test_bitset_rank_matches_oracle_and_host_twin(n_bits):
+    from repro.core.schema import Bitset
+
+    rng = np.random.default_rng(n_bits)
+    b = Bitset.from_bits(rng.random(n_bits) < 0.4)
+    pos = np.concatenate([np.arange(n_bits), [-1, -7]]).astype(np.int32)
+    got = TK.bitset_rank(_to_port(b.words), torch.from_numpy(pos))
+    assert got.dtype == torch.int32
+    want_jnp = np.asarray(RR.bitset_rank_ref(jnp.asarray(b.words), jnp.asarray(pos)))
+    np.testing.assert_array_equal(got.numpy(), want_jnp)
+    np.testing.assert_array_equal(got.numpy(), [b.rank(int(p)) for p in pos])
+
+
+def test_bitset_rank_past_the_last_bit_is_the_total():
+    words = _to_port(np.array([0xFFFFFFFF, 0x80000001], dtype=np.uint32))
+    got = TK.bitset_rank(words, torch.tensor([63, 64, 1000, -1], dtype=torch.int32))
+    assert got.tolist() == [34, 34, 34, 0]
+    assert TK.bitset_rank(torch.zeros(0, dtype=torch.int32),
+                          torch.tensor([0, -1], dtype=torch.int32)).tolist() == [0, 0]
+
+
+@given(st.lists(st.booleans(), min_size=1, max_size=200), st.integers(0, 2**31 - 1))
+@settings(max_examples=30, deadline=None)
+def test_bitset_rank_property(bits, seed):
+    from repro.core.schema import Bitset
+
+    b = Bitset.from_bits(bits)
+    pos = np.random.default_rng(seed).integers(-1, len(bits), 17).astype(np.int32)
+    got = TK.bitset_rank(_to_port(b.words), torch.from_numpy(pos)).numpy()
+    cum = np.concatenate([[0], np.cumsum(np.asarray(bits, int))])
+    np.testing.assert_array_equal(got, np.where(pos >= 0, cum[np.clip(pos, -1, len(bits) - 1) + 1], 0))
+
+
+# ---------------------------------------------------------------------------
+# lineage_gather: padded CSR neighbour table
+# ---------------------------------------------------------------------------
+def _random_csr(rng, n_rows, n_cols, nnz):
+    rows = np.sort(rng.integers(0, n_rows, nnz)).astype(np.int32)
+    cols = rng.integers(0, n_cols, nnz).astype(np.int32)
+    row_ptr = np.zeros(n_rows + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=row_ptr[1:])
+    return row_ptr, cols
+
+
+@pytest.mark.parametrize("n_rows,n_cols,nnz,max_deg", [(100, 50, 300, 16), (33, 7, 90, 33),
+                                                        (5, 5, 0, 1), (12, 40, 60, 200)])
+def test_lineage_gather_matches_oracle(n_rows, n_cols, nnz, max_deg):
+    rng = np.random.default_rng(nnz + max_deg)
+    row_ptr, cols = _random_csr(rng, n_rows, n_cols, nnz)
+    queries = rng.integers(0, n_rows, 37).astype(np.int32)
+    got = TK.lineage_gather(torch.from_numpy(row_ptr), torch.from_numpy(cols),
+                            torch.from_numpy(queries), max_deg=max_deg)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (37, max_deg)
+    colp = jnp.concatenate([jnp.asarray(cols), jnp.full((max_deg,), -1, jnp.int32)])
+    want = RR.lineage_gather_ref(jnp.asarray(queries), jnp.asarray(row_ptr), colp,
+                                 max_deg=max_deg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_lineage_gather_matches_host_csr():
+    from repro.core.provtensor import CSR
+
+    rng = np.random.default_rng(5)
+    csr = CSR.from_pairs(rng.integers(0, 20, 60), rng.integers(0, 30, 60), 20, 30)
+    qs = np.arange(20, dtype=np.int32)
+    md = int(np.diff(csr.row_ptr).max())
+    got = TK.lineage_gather(torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_idx),
+                            torch.from_numpy(qs), max_deg=md)
+    np.testing.assert_array_equal(got.numpy(), csr.batch_neighbors(qs, max_deg=md))
+
+
+# ---------------------------------------------------------------------------
+# the per-hop baseline: K x 3 launches, byte-equal to the fused walk
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hops,density", [(1, 0.25), (3, 0.02), (7, 0.1)])
+def test_unfused_walk_equals_fused_in_k_times_3_launches(hops, density):
+    rng = np.random.default_rng(hops)
+    n0 = int(rng.integers(5, 90))
+    _, planes = _random_chain(rng, n0, hops, density)
+    mask = _to_port(_pack_np(rng.random((9, n0)) < 0.3))
+    tplanes = [_to_port(p) for p in planes]
+    TK.reset_launch_counts()
+    out, cnt = TK.batched_walk_unfused(mask, tplanes)
+    assert TK.launch_counts() == {"bitmatmul": hops, "bitset_rank": hops,
+                                  "lineage_gather": hops}
+    TK.reset_launch_counts()
+    want_out, want_cnt = TK.batched_walk(mask, tplanes)
+    assert TK.launch_counts() == {"batched_walk": 1}
+    assert torch.equal(out, want_out) and torch.equal(cnt, want_cnt)
+    r_out, r_cnt = RK.batched_walk_unfused(_u32(mask), planes, use_pallas=False)
+    np.testing.assert_array_equal(_u32(out), np.asarray(r_out))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(r_cnt))
+    TK.reset_launch_counts()
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("bitmatmul", lambda d: (torch.zeros((2, 1), dtype=torch.int32, device=d),
+                             torch.zeros((20, 1), dtype=torch.int32, device=d))),
+    ("bitset_rank", lambda d: (torch.zeros(3, dtype=torch.int32, device=d),
+                               torch.zeros(2, dtype=torch.int32, device=d))),
+    ("lineage_gather", lambda d: (torch.zeros(3, dtype=torch.int32, device=d),
+                                  torch.zeros(4, dtype=torch.int32, device=d),
+                                  torch.zeros(2, dtype=torch.int32, device=d))),
+    ("batched_walk_unfused", lambda d: (torch.zeros((2, 1), dtype=torch.int32, device=d),
+                                        [torch.zeros((20, 1), dtype=torch.int32, device=d)])),
+])
+def test_new_entries_have_no_fallback_off_the_cpu(entry, args):
+    kw = {"max_deg": 2} if entry == "lineage_gather" else {}
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(TK, entry)(*args("meta"), **kw)

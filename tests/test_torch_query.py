@@ -19,6 +19,7 @@ from repro.dataprep import usecases as RU
 from repro.provenance import QuerySession as RSession
 from repro.provenance import prov as rprov
 from repro_torch.core import query as TQ
+from repro_torch.core.hopcache import ComposedIndex as TComposed
 from repro_torch.core.pipeline import ProvenanceIndex
 from repro_torch.dataprep import usecases as TU
 from repro_torch.dataprep.table import Table
@@ -67,7 +68,9 @@ def check_all_queries(r_idx, t_idx, r_src, r_sink, rng):
     fwd = pipegen.row_probes(rng, n_src)
     bwd = pipegen.row_probes(rng, n_dst)
     rs = r_walk(r_idx)
-    sessions = [QuerySession(t_idx, fused_walk=True), QuerySession(t_idx, fused_walk=False)]
+    sessions = [QuerySession(t_idx, use_hopcache=False, fused_walk=True),
+                QuerySession(t_idx, use_hopcache=False, fused_walk=False),
+                QuerySession(t_idx)]
     for ts in sessions:
         # Q1/Q2, batched and single
         same_records(prov(t_idx).source(t_src).rows_batch(fwd).forward().to(t_sink).run(ts),
@@ -156,7 +159,7 @@ def test_diamond_declines_fusion_and_walk_answers():
     rows = torch.zeros((2, n), dtype=torch.bool)
     rows[:, 0] = True
     assert TQ.fused_walk_record_masks_batch(t_idx, "src", t_sink, rows, "fwd") is None
-    session = QuerySession(t_idx, fused_walk=True)
+    session = QuerySession(t_idx, use_hopcache=False, fused_walk=True)
     prov(t_idx).source("src").rows_batch([[0], [1, 2]]).forward().to(t_sink).run(session)
     assert session.counters["fused_walk"] == 0
     check_all_queries(r_idx, t_idx, "src", r_sink, np.random.default_rng(0))
@@ -205,11 +208,14 @@ def test_run_many_fuses_and_keeps_submission_order():
 
 
 def test_unported_strategies_raise():
+    """Cells plans (attribute level) and the hop-cache's spill tier raise;
+    the hop-cache route is the default."""
     t_idx, sink = _diamond(3)
-    with pytest.raises(NotImplementedError, match="A5"):
-        QuerySession(t_idx, use_hopcache=True)
-    with pytest.raises(NotImplementedError, match="A5"):
+    assert QuerySession(t_idx).use_hopcache is True
+    with pytest.raises(NotImplementedError, match="A5b"):
         prov(t_idx).source("src").rows([0]).attrs([0]).forward().to(sink).run()
+    with pytest.raises(NotImplementedError, match="A7"):
+        QuerySession(t_idx, TComposed(t_idx, spill=True))
 
 
 def test_builder_validates_probes():
