@@ -9,7 +9,10 @@ host guesses; this module MEASURES them on the device the port runs on:
   plain version on the CPU), the torch sparse CSR product, and the fused
   batched walk (:func:`repro_torch.kernels.ops.batched_walk`);
 * on a card every time is taken with CUDA events after a synchronize (the
-  host clock around an asynchronous launch would measure the enqueue);
+  host clock around an asynchronous launch would measure the enqueue), over
+  enough back-to-back calls to fill a couple of milliseconds, and the
+  card's grid reaches the sizes of the Compas and Census relations, so
+  that each point's work exceeds a launch;
 * medians per grid point feed linear least-squares fits
   ``time = overhead + slope x work`` giving ``c_word_op`` /
   ``c_spmm_flop`` / ``c_spmm_overhead`` / ``c_launch_overhead``, and the
@@ -39,11 +42,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel
-from repro_torch.core.compose import binary_csr, compose_pair_csr
+from repro_torch.core.compose import compose_pair_csr, csr_from_pairs
 from repro_torch.core.costmodel import Constants
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops as K
-from repro_torch.kernels.ref import pack_bits
+from repro_torch.kernels.ref import wrap_int32
 
 __all__ = [
     "default_path",
@@ -78,38 +81,67 @@ def device_kind(device=None) -> str:
 # ---------------------------------------------------------------------------
 # Microbench harness
 # ---------------------------------------------------------------------------
-def _median_ns(fn, reps: int, device: torch.device, warmup: int = 1) -> float:
-    """Median time of one call of ``fn``, in ns: CUDA events after a
-    synchronize on a card, the host clock on the CPU."""
-    for _ in range(warmup):
+def _elapsed_ns(fn, calls: int, device: torch.device) -> float:
+    """Wall time of ``calls`` back-to-back calls of ``fn``, in ns: between
+    one pair of CUDA events on a card (issued after a synchronize), on the
+    host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e9
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
         fn()
-    ts = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            ts.append(start.elapsed_time(stop) * 1e6)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e9)
-    return float(np.median(ts))
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) * 1e6
 
 
-def _random_dense(rng, rows: int, cols: int, density: float, device) -> torch.Tensor:
-    return torch.from_numpy(rng.random((rows, cols)) < density).to(device)
+def _median_ns(fn, reps: int, device: torch.device) -> float:
+    """Median over ``reps`` rounds of the mean time of one call of ``fn``,
+    in ns.  Each round times as many back-to-back calls as fill about 2 ms
+    (at least one, at most 100), so a short call is not read as the
+    latency of one launch and its synchronize."""
+    one = _elapsed_ns(fn, 1, device)                       # warm-up and estimate
+    calls = int(min(max(2e6 // max(one, 1.0), 1), 100))
+    return float(np.median([_elapsed_ns(fn, calls, device) / calls for _ in range(reps)]))
 
 
-def _random_csr(rng, n: int, density: float, device) -> torch.Tensor:
-    rows, cols = torch.nonzero(_random_dense(rng, n, n, density, device), as_tuple=True)
-    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), dim=0)
-    return binary_csr(crow, cols, n, n)
+def _random_pairs(gen: torch.Generator, n: int, density: float, device):
+    """Distinct (row, col) int64 links of a random n x n relation with about
+    ``density * n * n`` links, drawn on ``device`` (no dense n x n array)."""
+    m = int(round(density * n * n))
+    lin = torch.unique(torch.randint(0, n * n, (m,), generator=gen, device=device))
+    return lin // n, lin % n
+
+
+def _pairs_bitplane(rows: torch.Tensor, cols: torch.Tensor, n: int) -> torch.Tensor:
+    """Distinct links -> packed (n, ceil(n/32)) int32 bitplane; the links
+    are distinct, so summing their bits into a word is their OR."""
+    nw = (n + 31) // 32
+    words = torch.zeros(n * nw, dtype=torch.int64, device=rows.device)
+    words.index_add_(0, rows * nw + cols // 32, torch.ones_like(cols) << (cols % 32))
+    return wrap_int32(words).reshape(n, nw)
+
+
+# (n, density) grid points.  On the card the relations reach the sizes of
+# the Compas (n ~ 7214) and Census (n = 32561) relations, so that the work
+# of a point exceeds a launch by far; Census-sized points are sparser, which
+# keeps the CSR product's output within a few hundred MB.  The CPU grid is
+# small: the plain bitmatmul there is a dense float product.
+_GRIDS = {
+    ("cuda", True): [(n, d) for n in (1024, 4096, 7214) for d in (0.002, 0.01)]
+    + [(32561, 0.0001), (32561, 0.0005)],
+    ("cuda", False): [(n, d) for n in (1024, 2048, 4096, 7214) for d in (0.002, 0.005, 0.01, 0.02)]
+    + [(32561, d) for d in (0.0001, 0.0002, 0.0005)],
+    ("cpu", True): [(n, d) for n in (128, 256, 512) for d in (0.02, 0.1)],
+    ("cpu", False): [(n, d) for n in (128, 256, 512, 1024, 2048)
+                     for d in (0.005, 0.02, 0.08, 0.25)],
+}
 
 
 def run_microbench(quick: bool = True, seed: int = 0, device=None) -> Dict[str, object]:
@@ -118,36 +150,30 @@ def run_microbench(quick: bool = True, seed: int = 0, device=None) -> Dict[str, 
     plus the device name — :func:`fit_constants` turns them into a
     :class:`Constants`."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    if quick:
-        sizes = [128, 256, 512]
-        densities = [0.02, 0.1]
-        reps = 3
-    else:
-        sizes = [128, 256, 512, 1024, 2048]
-        densities = [0.005, 0.02, 0.08, 0.25]
-        reps = 7
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    reps = 5 if quick else 9
     rows: List[Dict[str, object]] = []
 
-    for n in sizes:
+    for n, d in _GRIDS[(dev.type, bool(quick))]:
         nw = (n + 31) // 32
-        for d in densities:
-            a = pack_bits(_random_dense(rng, n, n, d, dev))
-            b = pack_bits(_random_dense(rng, n, n, d, dev))
-            t = _median_ns(lambda: K.bitmatmul(a, b), reps, dev)
-            rows.append({"kind": "bitmatmul", "n": n, "density": d,
-                         "word_ops": n * n * nw, "t_ns": t})
-            da = _random_csr(rng, n, d, dev)
-            db = _random_csr(rng, n, d, dev)
-            out_deg = db.values().shape[0] / max(n, 1)
-            t = _median_ns(lambda: compose_pair_csr(da, db), reps, dev)
-            rows.append({"kind": "spmm", "n": n, "density": d,
-                         "flops": da.values().shape[0] * out_deg, "t_ns": t})
+        ra, ca = _random_pairs(gen, n, d, dev)
+        rb, cb = _random_pairs(gen, n, d, dev)
+        a, b = _pairs_bitplane(ra, ca, n), _pairs_bitplane(rb, cb, n)
+        t = _median_ns(lambda: K.bitmatmul(a, b), reps, dev)
+        rows.append({"kind": "bitmatmul", "n": n, "density": d,
+                     "word_ops": n * n * nw, "t_ns": t})
+        del a, b
+        da, db = csr_from_pairs(ra, ca, n, n), csr_from_pairs(rb, cb, n, n)
+        out_deg = db.values().shape[0] / max(n, 1)
+        t = _median_ns(lambda: compose_pair_csr(da, db), reps, dev)
+        rows.append({"kind": "spmm", "n": n, "density": d,
+                     "flops": da.values().shape[0] * out_deg, "t_ns": t})
+        del da, db
 
     # fused-walk dispatch: the smallest chain isolates per-launch overhead
     n, hops = 128, 4
-    planes = [pack_bits(_random_dense(rng, n, n, 0.05, dev)) for _ in range(hops)]
-    mask = pack_bits(_random_dense(rng, 8, n, 0.05, dev))
+    planes = [_pairs_bitplane(*_random_pairs(gen, n, 0.05, dev), n) for _ in range(hops)]
+    mask = _pairs_bitplane(*_random_pairs(gen, n, 0.05, dev), n)[:8]
     t = _median_ns(lambda: K.batched_walk(mask, planes), reps, dev)
     rows.append({"kind": "fused_walk", "n": n, "hops": hops, "t_ns": t})
     return {"device": device_kind(dev), "rows": rows}

@@ -23,9 +23,9 @@ routing and ``explain()`` agree with it on the same pipelines.  They were
 guesses against a CPU host, not timings of any device;
 :mod:`repro_torch.core.calibrate` measures a replacement set on the card.
 
-The port always has its sparse backend (torch's CSR), so every
-``have_scipy`` flag below is true unless a caller passes otherwise; the
-name is ``repro``'s and kept with its signatures.
+The port always has its sparse backend (torch's CSR), so the backend pick
+depends on density alone; ``repro``'s ``have_scipy`` switch has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -286,8 +286,7 @@ def union_est(a: RelStats, b: RelStats) -> RelStats:
     return RelStats(a.rows, a.cols, min(cells, a.nnz + b.nnz))
 
 
-def compose_cost_pair(a: RelStats, b: RelStats, backend: str,
-                      have_scipy: bool = True) -> float:
+def compose_cost_pair(a: RelStats, b: RelStats, backend: str) -> float:
     """Cost of one ``a ∘ b`` merge.  ``backend="auto"`` prices structured
     pairs at their closed form (one take), everything else in the
     representation :func:`pick_backend` would choose for the estimated
@@ -295,20 +294,17 @@ def compose_cost_pair(a: RelStats, b: RelStats, backend: str,
     if backend == "auto":
         if a.structured and b.structured:
             return structured_cost(a, b)
-        backend = pick_backend(compose_est(a, b).density, have_scipy)
+        backend = pick_backend(compose_est(a, b).density)
     return spmm_cost(a, b) if backend == "csr" else bitplane_cost(a, b)
 
 
-def pick_backend(density: float, have_scipy: bool = True) -> str:
+def pick_backend(density: float) -> str:
     """Backend for a relation of the given density: CSR below
     :data:`DENSITY_THRESHOLD`, packed bitplane above it."""
-    if not have_scipy:
-        return "bitplane"
     return "bitplane" if density >= _ACTIVE.density_threshold else "csr"
 
 
-def plan_chain_stats(stats: Sequence[RelStats], backend: str = "csr",
-                     have_scipy: bool = True) -> List[Tuple[int, int]]:
+def plan_chain_stats(stats: Sequence[RelStats], backend: str = "csr") -> List[Tuple[int, int]]:
     """nnz-aware matrix-chain DP over relation statistics.
 
     Same merge-order contract as :func:`repro_torch.core.compose.plan_chain`
@@ -321,13 +317,12 @@ def plan_chain_stats(stats: Sequence[RelStats], backend: str = "csr",
     ``bitplane`` backend prices by dims alone — its word ops are
     nnz-independent — and reduces to the classic DP.)
     """
-    order, _, _ = _chain_dp(stats, backend, have_scipy)
+    order, _, _ = _chain_dp(stats, backend)
     return order
 
 
-def _chain_dp(stats: Sequence[RelStats], backend: str,
-              have_scipy: bool) -> Tuple[List[Tuple[int, int]], float,
-                                         Optional[RelStats]]:
+def _chain_dp(stats: Sequence[RelStats], backend: str
+              ) -> Tuple[List[Tuple[int, int]], float, Optional[RelStats]]:
     """The DP behind :func:`plan_chain_stats`, additionally returning the
     optimal total merge cost and the folded whole-chain estimate (what
     :func:`extend_vs_recompose` prices a recompose at)."""
@@ -354,8 +349,7 @@ def _chain_dp(stats: Sequence[RelStats], backend: str,
             cost[i][j] = INF
             for k in range(i, j):
                 c = (cost[i][k] + cost[k + 1][j]
-                     + compose_cost_pair(est[i][k], est[k + 1][j], backend,
-                                         have_scipy))
+                     + compose_cost_pair(est[i][k], est[k + 1][j], backend))
                 if c < cost[i][j]:
                     cost[i][j] = c
                     split[i][j] = k
@@ -373,18 +367,17 @@ def _chain_dp(stats: Sequence[RelStats], backend: str,
     return order, cost[0][n - 1], est[0][n - 1]
 
 
-def extend_tail_cost(prefix: RelStats, step: RelStats,
-                     have_scipy: bool = True) -> float:
+def extend_tail_cost(prefix: RelStats, step: RelStats) -> float:
     """Cost of extending a warm composed ``prefix`` by ONE structured
     ``step`` via the closed forms in :mod:`repro_torch.core.compose`: a
     structured prefix pays one take (:func:`structured_cost`); a dense
     prefix pays the COLUMN GATHER of ``extend_tail`` — O(nnz moved) for
     CSR, O(dense words) for bitplane — never a matmul."""
     if not step.structured:
-        return compose_cost_pair(prefix, step, "auto", have_scipy)
+        return compose_cost_pair(prefix, step, "auto")
     if prefix.structured:
         return structured_cost(prefix, step)
-    if pick_backend(prefix.density, have_scipy) == "csr":
+    if pick_backend(prefix.density) == "csr":
         moved = prefix.nnz * (step.nnz / max(step.rows, 1))
         return _ACTIVE.c_spmm_overhead + _ACTIVE.c_take * (moved + step.cols)
     words = prefix.rows * (max((prefix.cols + 31) // 32, 1)
@@ -393,8 +386,7 @@ def extend_tail_cost(prefix: RelStats, step: RelStats,
 
 
 def extend_vs_recompose(prefix: RelStats, tail: Sequence[RelStats],
-                        backend: str = "auto",
-                        have_scipy: bool = True) -> Dict[str, object]:
+                        backend: str = "auto") -> Dict[str, object]:
     """Gate the hop-cache's streaming maintenance: when ops land on a warm
     composed ``prefix``, is it cheaper to EXTEND it step by step (the
     closed-form tail extension, left-to-right) or to RECOMPOSE — fold the
@@ -417,15 +409,15 @@ def extend_vs_recompose(prefix: RelStats, tail: Sequence[RelStats],
     extend_ns = 0.0
     acc = prefix
     for step in tail:
-        extend_ns += extend_tail_cost(acc, step, have_scipy)
+        extend_ns += extend_tail_cost(acc, step)
         acc = compose_est(acc, step)
     if len(tail) == 1:
         return {"strategy": "extend", "extend_ns": extend_ns,
                 "recompose_ns": extend_ns, "tail_order": [], "est": acc}
-    tail_order, tail_ns, folded = _chain_dp(tail, backend, have_scipy)
+    tail_order, tail_ns, folded = _chain_dp(tail, backend)
     # the final prefix-apply goes through the same closed forms the executor
     # uses: a structured folded tail is ONE column gather, not a matmul
-    recompose_ns = tail_ns + extend_tail_cost(prefix, folded, have_scipy)
+    recompose_ns = tail_ns + extend_tail_cost(prefix, folded)
     strategy = "extend" if extend_ns <= recompose_ns else "recompose"
     return {"strategy": strategy, "extend_ns": extend_ns,
             "recompose_ns": recompose_ns, "tail_order": tail_order,
@@ -519,12 +511,11 @@ class CostModel:
     mis-routed forever.
     """
 
-    def __init__(self, index, have_scipy: Optional[bool] = None) -> None:
+    def __init__(self, index) -> None:
         # first model in the process installs calibrated constants when a
         # calibration file exists; a no-op (bit-for-bit defaults) otherwise
         maybe_load_calibration()
         self.index = index
-        self.have_scipy = True if have_scipy is None else have_scipy
         self._chains: Dict[Tuple[str, str], Optional[List[RelStats]]] = {}
         self._composed: Dict[Tuple[str, str],
                              Tuple[Optional[RelStats], float]] = {}
@@ -612,8 +603,7 @@ class CostModel:
                 if prefix is None:
                     contrib = step   # the op's own relation: no compose work
                 else:
-                    cost += compose_cost_pair(prefix, step, "auto",
-                                              self.have_scipy)
+                    cost += compose_cost_pair(prefix, step, "auto")
                     contrib = compose_est(prefix, step)
                 acc = contrib if acc is None else union_est(acc, contrib)
             if acc is not None:

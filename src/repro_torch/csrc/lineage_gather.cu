@@ -21,9 +21,8 @@
 // a shuffle; the warp then copies the row in strides of 32 lanes, so the read
 // of col_idx and the write of the table row are coalesced runs, and writes -1
 // past the row's degree without reading there.  The TPU kernel read a whole
-// max_deg window out of a sentinel-padded col_idx and masked it; the wrapper
-// keeps that padding, so the kernel could read the window too, but it has no
-// need to.
+// max_deg window out of a sentinel-padded col_idx and masked it; this kernel
+// never reads past a row's end, so col_idx needs no padding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

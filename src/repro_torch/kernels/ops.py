@@ -112,17 +112,17 @@ def bitset_rank(words: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 def lineage_gather(row_ptr: torch.Tensor, col_idx: torch.Tensor, queries: torch.Tensor,
                    *, max_deg: int) -> torch.Tensor:
     """Batched CSR probe -> (Q, max(max_deg, 1)) int32 neighbour table, -1
-    past each row's degree.  ``col_idx`` is padded with ``max_deg`` -1
-    sentinels first, as ``repro``'s wrapper pads it."""
+    past each row's degree.  Neither the kernel nor its plain version reads
+    past a row's degree, so ``col_idx`` needs none of the sentinel padding
+    ``repro``'s wrapper adds for its fixed-width window."""
     md = max(int(max_deg), 1)
     dev = _device("lineage_gather", row_ptr, col_idx, queries)
-    col_p = torch.cat([col_idx.to(torch.int32),
-                       torch.full((md,), -1, dtype=torch.int32, device=dev)])
     if dev.type == "cpu":
         _note_launch("lineage_gather")
-        return ref.lineage_gather_ref(queries, row_ptr, col_p, max_deg=md)
+        return ref.lineage_gather_ref(queries, row_ptr, col_idx, max_deg=md)
     out = lineage_gather_cuda(queries.to(torch.int32).contiguous(),
-                              row_ptr.to(torch.int32).contiguous(), col_p, md)
+                              row_ptr.to(torch.int32).contiguous(),
+                              col_idx.to(torch.int32).contiguous(), md)
     _note_launch("lineage_gather")
     return out
 
@@ -163,8 +163,7 @@ def batched_walk(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]):
     return out
 
 
-def batched_walk_unfused(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor],
-                         max_deg=None):
+def batched_walk_unfused(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]):
     """The per-hop baseline the fused kernel replaces: K x 3 launches.
 
     Per hop: :func:`bitplane_probe` (the select-OR contraction),
@@ -193,7 +192,6 @@ def batched_walk_unfused(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]
         row_ptr = torch.zeros(b + 1, dtype=torch.int32, device=dev)
         row_ptr[1:] = torch.cumsum(counts, dim=0)
         col_idx = torch.nonzero(ref.unpack_bits(cur, w * 32))[:, 1].to(torch.int32)
-        md = max_deg if max_deg is not None else (int(counts.max()) if b else 1)
         lineage_gather(row_ptr, col_idx, torch.arange(b, dtype=torch.int32, device=dev),
-                       max_deg=md)
+                       max_deg=int(counts.max()) if b else 1)
     return cur, torch.stack(all_counts, dim=0)

@@ -28,6 +28,7 @@ from repro_torch.core import costmodel as TCM
 from repro_torch.core.hopcache import ComposedIndex
 from repro_torch.core.pipeline import ProvenanceIndex
 from repro_torch.dataprep import usecases as TU
+from repro_torch.kernels.ref import pack_bits
 from repro_torch.provenance import QuerySession, prov
 from test_torch_capture import build_merged
 from test_torch_query import _diamond, id_map
@@ -262,3 +263,19 @@ def test_microbench_on_the_host_fits_and_persists(tmp_path):
     assert 1e-4 <= c.density_threshold <= 0.5
     assert TCM.active_constants().source == "default"
     assert TCal.load_constants(str(tmp_path / "cal.json"), "cpu").c_word_op == c.c_word_op
+
+
+@pytest.mark.parametrize("n,density", [(1, 1.0), (33, 0.1), (100, 0.02)])
+def test_microbench_relations_are_distinct_links_packed_exactly(n, density):
+    gen = torch.Generator().manual_seed(3)
+    rows, cols = TCal._random_pairs(gen, n, density, torch.device("cpu"))
+    assert torch.unique(rows * n + cols).numel() == rows.numel()
+    dense = torch.zeros((n, n), dtype=torch.bool)
+    dense[rows, cols] = True
+    assert torch.equal(TCal._pairs_bitplane(rows, cols, n), pack_bits(dense))
+
+
+def test_microbench_times_back_to_back_calls():
+    calls = []
+    t = TCal._median_ns(lambda: calls.append(1), 3, torch.device("cpu"))
+    assert t > 0 and len(calls) == 1 + 3 * 100
