@@ -10,9 +10,13 @@ PyTorch built for CUDA.  It
 2. builds every kernel from ``src/repro_torch/csrc`` (into ``build/``);
 3. holds each kernel against its plain PyTorch version on the card,
    exactly (integer words, ranks, tables and counts: tolerance 0), over
-   synthetic sweeps: ``batched_walk`` over hop counts, batch sizes, widths
-   and densities; ``bitmatmul`` with K off a word boundary, bits of A past
-   K, empty rows and densities 0 to 0.5; ``bitset_rank`` and
+   synthetic sweeps: ``batched_walk`` over hop counts (1 to 64), batch
+   sizes, widths and densities, with row lists past their capacity
+   (density 0.5 at 7214 and 32561 rows) and every probe block (B not a
+   multiple of it); ``bitmatmul`` with K off a word boundary, bits of A
+   past K, empty rows, densities 0 to 0.5, every slice width of its grid
+   (M = 64 on the 2-D grid, ragged last slices) and ragged last A tiles
+   at the Compas and Census composition shapes; ``bitset_rank`` and
    ``lineage_gather`` with Q = 1..257, degree 0 and ``max_deg`` above every
    degree;
 4. drives the record-level main path on the card: capture of the German,
@@ -39,10 +43,14 @@ PyTorch built for CUDA.  It
    (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against 1;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
-9. times every kernel at the main path's shapes (CUDA events, medians)
-   beside its plain version, its bound and, where one exists, a one-call
-   PyTorch yardstick, plus end-to-end latencies of the walk, the default
-   hop-cache and the bitplane hop-cache.
+9. times every kernel at the main path's shapes beside its plain version,
+   its bound and, where one exists, a one-call PyTorch yardstick: device
+   time (``device_ms``: the calls queued behind a device spin, so the CUDA
+   events bracket device work, not the Python launch rate) and, beside
+   it, the host-paced time of back-to-back calls (``event_ms``); the walk
+   and the probe at 1, 8 and 64 rows per probe and a Census walk; then
+   end-to-end latencies of the walk, the default hop-cache and the
+   bitplane hop-cache.
 
 Every phase prints one JSON line.  Any failure raises and the exit code is
 not 0.  The last three lines are the kernel table, the card's name and
@@ -70,6 +78,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 # throughput table), x 132 SMs x 1.98 GHz boost clock of the H100 SXM
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 POPC_PER_S = 132 * 16 * 1.98e9
+SPIN_CYCLES_PER_S = 1.98e9   # torch.cuda._sleep counts SM clocks; a first guess, doubled as needed
 SEED = 1234
 B = 64
 DEV = torch.device("cuda", 0)
@@ -117,6 +126,51 @@ def event_ms(fn, reps: int = 50, rounds: int = 7, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 50, rounds: int = 7, warmup: int = 5) -> float:
+    """Median over ``rounds`` of the mean DEVICE time of ``reps``
+    back-to-back calls.  Each round queues a device spin
+    (``torch.cuda._sleep``) before its start event, long enough that the
+    host has enqueued every call before the spin ends: the events then
+    bracket device work only, never the Python launch rate.  The spin
+    doubles until it outlasts the enqueue; a round it does not cover is
+    timed again.  ``fn`` must neither synchronise nor fill the launch
+    queue (keep ``reps`` low for a function of many operations), or the
+    spin never covers it and this raises."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    cycles = int(max(2.0 * enqueue_s, 2e-4) * SPIN_CYCLES_PER_S)
+    times = []
+    tries = 0
+    while len(times) < rounds:
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        host_s = time.perf_counter() - t
+        stop.synchronize()
+        if spin.elapsed_time(start) > 1.2 * host_s * 1e3:
+            times.append(start.elapsed_time(stop) / reps)
+        else:
+            cycles *= 2
+            tries += 1
+            if tries > 8:
+                raise RuntimeError("the spin never covered the enqueue: the function "
+                                   "synchronises or fills the launch queue")
+    return statistics.median(times)
+
+
 def host_ms(fn, reps: int = 7) -> float:
     fn()
     times = []
@@ -154,8 +208,8 @@ def main() -> int:
     from repro_torch.dataprep import usecases as U
     from repro_torch.dataprep.tracked import track
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.batched_walk import batched_walk_cuda
-    from repro_torch.kernels.bitmatmul import bitmatmul_cuda
+    from repro_torch.kernels.batched_walk import batched_walk_cuda, walk_geometry
+    from repro_torch.kernels.bitmatmul import SLICE_WORDS, bitmatmul_cuda, bitmatmul_geometry
     from repro_torch.kernels.bitset_rank import bitset_rank_cuda
     from repro_torch.kernels.lineage_gather import lineage_gather_cuda
     from repro_torch.provenance import QuerySession, prov
@@ -201,8 +255,43 @@ def main() -> int:
                 check(err == 0, f"batched_walk != plain at K={k} B={b} dims={dims} density={dens}")
                 walk_err = max(walk_err, err)
                 n_cases += 1
+
+    # the redesigned kernel's edges: row lists past their capacity (density
+    # 0.5 at 7214 and 32561 rows: ~3600 and ~16,000 rows a probe per hop),
+    # probe blocks of 2, 4 and 8 with B not a multiple of them, one and 64
+    # hops, word counts that the threads of a slice do not divide
+    edge_cases = [
+        (64, [7214, 7214, 7214], 0.5),
+        (1100, [7214, 7214, 7214], 0.5),
+        (64, [32561, 32561, 32561], 0.5),
+        (1100, [32561, 32561], 0.5),
+        (301, [1000, 7214, 33, 6907], 0.05),
+        (601, [6907, 7214, 1000], 0.05),
+        (1100, [7214, 1], 0.5),
+        (1100, [33, 7214], 0.05),
+        (64, [widths[i % len(widths)] for i in range(65)], 0.05),
+        (1100, [widths[i % 4] for i in range(65)], 0.5),
+        (257, [1000, 1000], 1e-3),
+    ]
+    geometries = set()
+    for b, dims, dens in edge_cases:
+        k = len(dims) - 1
+        planes = [rand_bits(dims[j], dims[j + 1], dens) for j in range(k)]
+        mask = rand_bits(b, dims[0], dens)
+        out, cnt = batched_walk_cuda(mask, planes)
+        want_out, want_cnt = ref.batched_walk_ref(mask, planes)
+        torch.cuda.synchronize()
+        err = max(word_err(out, want_out), int((cnt - want_cnt).abs().max()))
+        check(err == 0, f"batched_walk != plain at K={k} B={b} dims={dims[:4]} density={dens}")
+        walk_err = max(walk_err, err)
+        geometries.add(walk_geometry(b, max(p.shape[1] for p in [mask, *planes])))
+        n_cases += 1
+        del planes, mask, want_out, out
+    check({g.block_b for g in geometries} == {1, 2, 4, 8} and max(g.slices for g in geometries) > 1,
+          f"edge geometries {sorted(geometries)}")
     emit({"phase": "kernel_vs_plain", "kernel": "batched_walk", "cases": n_cases,
-          "max_abs_err": walk_err, "tolerance": 0})
+          "max_abs_err": walk_err, "tolerance": 0,
+          "edge_geometries": sorted(list(g) for g in geometries)})
 
     bm_err = 0
     n_cases = 0
@@ -220,9 +309,38 @@ def main() -> int:
                     check(err == 0, f"bitmatmul != plain at M={m} K={k} N={n} density={dens}")
                     bm_err = max(bm_err, err)
                     n_cases += 1
-    torch.cuda.synchronize()
+
+    # the redesigned kernel's edges: M = 64 on the 2-D grid (slices of 32
+    # words, the last one ragged), dense tiles whose row list overflows
+    # (K = 32561 at density 0.5), and ragged last A tiles at the Compas and
+    # Census composition shapes with one bit per row of A
+    def one_bit_rows(m, k, hit=0.9):
+        cols = torch.randint(0, k, (m,), generator=gen, device=dev)
+        dense = torch.zeros((m, k), dtype=torch.bool, device=dev)
+        dense[torch.arange(m, device=dev), cols] = torch.rand(m, generator=gen, device=dev) < hit
+        return ref.pack_bits(dense)
+
+    bm_geometries = set()
+    for m, k, n, dens in ((64, 7214, 6907, 0.0011), (64, 7214, 32561, 0.0011),
+                          (64, 32561, 1000, 0.5), (257, 32561, 8193, 0.01),
+                          (264, 1000, 8193, 0.05), (800, 7214, 6907, 0.01),
+                          (1100, 7214, 6907, 0.01), (2113, 1000, 12000, 0.01),
+                          (7214, 6907, 6907, None),
+                          (7217, 6907, 6907, None), (7214, 6907, 6907, 0.01),
+                          (32561, 32561, 32561, None)):
+        a = one_bit_rows(m, k) if dens is None else rand_bits(m, k, dens)
+        bb = rand_bits(k, n, 0.05 if dens is None else dens)
+        err = word_err(bitmatmul_cuda(a, bb), ref.bitmatmul_ref(a, bb))
+        torch.cuda.synchronize()
+        check(err == 0, f"bitmatmul != plain at M={m} K={k} N={n} density={dens}")
+        bm_err = max(bm_err, err)
+        bm_geometries.add(bitmatmul_geometry(m, bb.shape[1]))
+        n_cases += 1
+        del a, bb
+    check({g.slice_words for g in bm_geometries} == set(SLICE_WORDS),
+          f"edge geometries {sorted(bm_geometries)}")
     emit({"phase": "bitmatmul_vs_plain", "cases": n_cases, "max_abs_err": bm_err,
-          "tolerance": 0})
+          "tolerance": 0, "edge_geometries": sorted(list(g) for g in bm_geometries)})
 
     rank_err = 0
     n_cases = 0
@@ -655,7 +773,7 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain_real", "compas_hops": len(chain),
           "census_hops": len(census_planes), "census_rows": n_census,
           "max_abs_err": 0, "tolerance": 0})
-    del census_planes, want_out, out
+    del want_out, out
 
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
@@ -680,6 +798,10 @@ def main() -> int:
           "threshold_ratio": max(thr) / min(thr)})
 
     # -- 9. times -----------------------------------------------------------------
+    # "ms" is device time (device_ms: the calls queued behind a device spin,
+    # so the events bracket device work only); "host_paced_ms" is the same
+    # calls timed back to back as the host issues them (event_ms), which for
+    # a kernel shorter than its Python launcher measures the launcher
     def unpack16(words, n):
         return ref.unpack_bits(words, n).to(torch.float16)
 
@@ -698,11 +820,13 @@ def main() -> int:
         dense_a, dense_b = unpack16(a, k), unpack16(bb, nw * 32)
         row = {
             "shape": {"A": list(a.shape), "B": list(bb.shape)},
-            "ms": event_ms(lambda: bitmatmul_cuda(a, bb)),
-            "plain_ms": event_ms(lambda: ref.bitmatmul_ref(a, bb), reps=plain_reps,
-                                 rounds=plain_rounds, warmup=1),
-            "library_ms": event_ms(lambda: torch.matmul(dense_a, dense_b), reps=plain_reps,
-                                   rounds=plain_rounds, warmup=1),
+            "geometry": bitmatmul_geometry(a.shape[0], nw)._asdict(),
+            "ms": device_ms(lambda: bitmatmul_cuda(a, bb)),
+            "host_paced_ms": event_ms(lambda: bitmatmul_cuda(a, bb)),
+            "plain_ms": device_ms(lambda: ref.bitmatmul_ref(a, bb),
+                                  reps=plain_reps, rounds=plain_rounds, warmup=1),
+            "library_ms": device_ms(lambda: torch.matmul(dense_a, dense_b),
+                                    reps=plain_reps, rounds=plain_rounds, warmup=1),
             "bound_bytes": moved, "bound_word_ops": word_ops,
             "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
             "ops_ms": word_ops / INT_OPS_PER_S * 1e3,
@@ -728,8 +852,9 @@ def main() -> int:
     rank_ops = flat.numel() + B
     rank_row = {
         "shape": {"W": flat.numel(), "Q": B},
-        "ms": event_ms(lambda: bitset_rank_cuda(flat, ends)),
-        "plain_ms": event_ms(lambda: ref.bitset_rank_ref(flat, ends), reps=20),
+        "ms": device_ms(lambda: bitset_rank_cuda(flat, ends)),
+        "host_paced_ms": event_ms(lambda: bitset_rank_cuda(flat, ends)),
+        "plain_ms": device_ms(lambda: ref.bitset_rank_ref(flat, ends), reps=5),
         "library_ms": None,
         "bytes_ms": rank_bytes / HBM_BYTES_PER_S * 1e3,
         "ops_ms": rank_ops / POPC_PER_S * 1e3,
@@ -739,8 +864,9 @@ def main() -> int:
     gather_bytes = (B + (B + 1) + int(counts.clamp(max=md).sum()) + B * md) * 4
     gather_row = {
         "shape": {"Q": B, "R": B, "nnz": col.numel(), "max_deg": md},
-        "ms": event_ms(lambda: lineage_gather_cuda(qs, rp, col, md)),
-        "plain_ms": event_ms(lambda: ref.lineage_gather_ref(qs, rp, col, max_deg=md), reps=20),
+        "ms": device_ms(lambda: lineage_gather_cuda(qs, rp, col, md)),
+        "host_paced_ms": event_ms(lambda: lineage_gather_cuda(qs, rp, col, md)),
+        "plain_ms": device_ms(lambda: ref.lineage_gather_ref(qs, rp, col, max_deg=md), reps=20),
         "library_ms": None,
         "bytes_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
         "ops_ms": 0.0,
@@ -748,8 +874,9 @@ def main() -> int:
     gather_row["bound_ms"] = gather_row["bytes_ms"]
     gather_row["bound_by"] = "bytes"
 
-    walk_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
-    walk_plain_ms = event_ms(lambda: ref.batched_walk_ref(q2_mask, compas_bwd), reps=5)
+    walk_ms = device_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
+    walk_host_paced_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
+    walk_plain_ms = device_ms(lambda: ref.batched_walk_ref(q2_mask, compas_bwd), reps=2)
     dense = [unpack16(p, p.shape[1] * 32) for p in compas_bwd]
     sel16 = unpack16(q2_mask, compas_bwd[0].shape[0])
 
@@ -759,12 +886,34 @@ def main() -> int:
             cur = torch.matmul(cur[:, : plane.shape[0]], plane)
         return cur
 
-    walk_library_ms = event_ms(matmul_chain, reps=5)
+    walk_library_ms = device_ms(matmul_chain, reps=5)
     del dense
     tiny_mask = torch.ones((1, 1), dtype=torch.int32, device=dev)
     tiny_plane = [torch.ones((1, 1), dtype=torch.int32, device=dev)]
-    launch_floor_ms = event_ms(lambda: batched_walk_cuda(tiny_mask, tiny_plane))
+    launch_floor_ms = device_ms(lambda: batched_walk_cuda(tiny_mask, tiny_plane))
+    launch_floor_host_paced_ms = event_ms(lambda: batched_walk_cuda(tiny_mask, tiny_plane))
     unfused_ms = host_ms(lambda: ops.batched_walk_unfused(q2_mask, compas_bwd))
+
+    # rows per probe: B = 64 probes of r random rows each, through the Compas
+    # Q2 chain (walk) and against the composed Compas relation (probe); a
+    # kernel that waits on each row load grows with r at one load latency a
+    # row.  Timed through the entry points.
+    rng_r = np.random.default_rng(SEED)
+
+    def random_masks(r, n):
+        m = torch.zeros((B, n), dtype=torch.bool, device=dev)
+        for b in range(B):
+            m[b, torch.as_tensor(rng_r.choice(n, r, replace=False), device=dev)] = True
+        return ref.pack_bits(m)
+
+    scaling = {}
+    for r in (1, 8, 64):
+        m2 = random_masks(r, ci_idx.datasets[csink].n_rows)
+        m1 = random_masks(r, ci_idx.datasets[csrc].n_rows)
+        scaling[r] = {"walk_ms": device_ms(lambda: ops.batched_walk(m2, compas_bwd)),
+                      "probe_ms": device_ms(lambda: ops.bitmatmul(m1, compas_rel))}
+    census_walk_ms = device_ms(lambda: ops.batched_walk(cmask, census_planes), reps=10)
+    del census_planes
 
     # bound of the fused walk: the plane rows some probe selects (read once),
     # the masks in, the frontier and counts out; one AND and one OR per
@@ -785,15 +934,19 @@ def main() -> int:
           "batched_walk": {
               "shape": {"K": len(compas_bwd), "B": B, "rows": [p.shape[0] for p in compas_bwd],
                         "words": [p.shape[1] for p in compas_bwd]},
-              "ms": walk_ms, "plain_ms": walk_plain_ms, "library_ms": walk_library_ms,
+              "geometry": walk_geometry(B, max(p.shape[1] for p in [q2_mask, *compas_bwd]))._asdict(),
+              "ms": walk_ms, "host_paced_ms": walk_host_paced_ms, "plain_ms": walk_plain_ms,
+              "library_ms": walk_library_ms,
               "library": "per-hop torch.matmul on 0/1 float16 (K calls)",
               "bound_ms": walk_bound_ms, "bound_bytes": plane_bytes + io_bytes,
               "bound_word_ops": word_ops, "launch_floor_ms": launch_floor_ms,
+              "launch_floor_host_paced_ms": launch_floor_host_paced_ms,
               "unfused_host_ms": unfused_ms,
               "all_planes_bytes": sum(p.numel() * 4 for p in compas_bwd)},
           "bitmatmul": bm_rows,
           "bitmatmul_library": "one torch.matmul of the unpacked 0/1 float16 operands",
           "bitset_rank": rank_row, "lineage_gather": gather_row,
+          "rows_per_probe": scaling, "census_walk_1pct_ms": census_walk_ms,
           "no_library": "neither bitset_rank nor lineage_gather has a one-call PyTorch "
                         "counterpart"})
 

@@ -19,7 +19,10 @@ from repro.kernels import ops as RK
 from repro.kernels import ref as RR
 from repro_torch.kernels import ops as TK
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.batched_walk import SMEM_BYTES, pick_block_b
+from repro_torch.kernels.batched_walk import (MIN_CAP, SMEM_BYTES, SMS, pick_block_b,
+                                              walk_geometry, walk_smem_bytes)
+from repro_torch.kernels.bitmatmul import (SLICE_WORDS, bitmatmul_geometry,
+                                           bitmatmul_smem_bytes)
 
 
 def _to_port(words) -> torch.Tensor:
@@ -186,16 +189,69 @@ def test_batched_walk_counts_dispatches():
     TK.reset_launch_counts()
 
 
-@pytest.mark.parametrize("w_max,bb", [(1, 8), (1448, 8), (3632, 8), (3633, 4),
-                                      (14528, 2), (29056, 1)])
-def test_probe_block_fits_shared_memory(w_max, bb):
-    assert pick_block_b(w_max) == bb
-    assert 2 * bb * w_max * 4 <= SMEM_BYTES
+@pytest.mark.parametrize("b,w_max,bb", [(64, 226, 1), (1100, 226, 8), (301, 226, 2),
+                                        (601, 1018, 4), (1100, 14000, 2), (5000, 28900, 1)])
+def test_probe_block_fits_shared_memory(b, w_max, bb):
+    """The largest probe block that still gives every SM a CTA and fits,
+    with the smallest row list, in one block's shared memory."""
+    assert pick_block_b(w_max, b) == bb
+    assert walk_smem_bytes(bb, w_max, MIN_CAP) <= SMEM_BYTES
+    assert -(-b // bb) >= SMS or bb == 1
 
 
 def test_frontier_too_wide_for_shared_memory_raises():
     with pytest.raises(ValueError, match="too wide"):
-        pick_block_b(SMEM_BYTES // 8 + 1)
+        pick_block_b(SMEM_BYTES // 8 + 1, 64)
+    with pytest.raises(ValueError, match="too wide"):
+        walk_geometry(64, 29000)          # fits two frontiers, not a row list beside them
+
+
+@pytest.mark.parametrize("b", [1, 64, 257, 1100, 5000])
+@pytest.mark.parametrize("w_max", [1, 32, 100, 226, 1018, 14000, 28900])
+def test_walk_geometry_fits_shared_memory(b, w_max):
+    geo = walk_geometry(b, w_max)
+    assert geo.smem_bytes == walk_smem_bytes(geo.block_b, w_max, geo.cap) <= SMEM_BYTES
+    assert geo.block_b == pick_block_b(w_max, b)
+    # the largest power-of-two list that fits, at least one thread's entries
+    assert MIN_CAP <= geo.cap <= 4096 and geo.cap & (geo.cap - 1) == 0
+    assert geo.cap == 4096 or walk_smem_bytes(geo.block_b, w_max, 2 * geo.cap) > SMEM_BYTES
+    # thread slices: each slice still has a thread per word of the frontier
+    assert geo.slices in (1, 2, 4, 8)
+    assert geo.slices == 1 or 256 // geo.slices >= 32 * -(-w_max // 32)
+
+
+@pytest.mark.parametrize("m,nw,want", [
+    (64, 216, (8, 7, 32)),            # the Compas probe: 2-D grid, slices of a warp
+    (0, 0, (1, 1, 32)),
+    (800, 216, (100, 4, 64)),
+    (1100, 216, (138, 2, 128)),
+    (7214, 216, (902, 1, 256)),       # the Compas composition: whole rows
+    (2113, 375, (265, 1, 512)),
+    (32561, 1018, (4071, 1, 1024)),   # the Census composition: whole rows, A read once
+    (5000, 3000, (625, 3, 1024)),
+])
+def test_bitmatmul_geometry(m, nw, want):
+    geo = bitmatmul_geometry(m, nw)
+    assert tuple(geo) == want
+    assert geo.slice_words in SLICE_WORDS
+    assert bitmatmul_smem_bytes(geo.slice_words) <= SMEM_BYTES
+
+
+@given(st.integers(0, 40000), st.integers(0, 5000))
+@settings(max_examples=50, deadline=None)
+def test_bitmatmul_geometry_property(m, nw):
+    geo = bitmatmul_geometry(m, nw)
+    assert geo.row_tiles * 8 >= m and geo.word_slices * geo.slice_words >= nw
+    assert nw == 0 or (geo.word_slices - 1) * geo.slice_words < nw
+    # fills the card, or has slices of one warp, or keeps whole rows (A read once)
+    whole = geo.slice_words >= min(max(nw, 256), 1024)
+    assert geo.row_tiles * geo.word_slices >= 2 * SMS or geo.slice_words == 32 or whole
+    assert bitmatmul_smem_bytes(geo.slice_words) <= SMEM_BYTES
+
+
+def test_bitmatmul_geometry_too_wide_raises():
+    with pytest.raises(ValueError, match="at most"):
+        bitmatmul_geometry(10**6, 70_000_000)
 
 
 @given(st.integers(1, 5), st.integers(0, 2**31 - 1))
