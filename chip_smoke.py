@@ -16,7 +16,8 @@ PyTorch built for CUDA.  It
    multiple of it); ``bitmatmul`` with K off a word boundary, bits of A
    past K, empty rows, densities 0 to 0.5, every slice width of its grid
    (M = 64 on the 2-D grid, ragged last slices) and ragged last A tiles
-   at the Compas and Census composition shapes; ``bitset_rank`` and
+   at the Compas and Census composition shapes, and the attribute walk's
+   shapes (A 64 x 1-4 words, B 1-104 rows x 1-4 words); ``bitset_rank`` and
    ``lineage_gather`` with Q = 1..257, degree 0 and ``max_deg`` above every
    degree;
 4. drives the record-level main path on the card: capture of the German,
@@ -40,7 +41,22 @@ PyTorch built for CUDA.  It
    compositions;
 7. runs the per-hop baseline ``batched_walk_unfused`` against the fused
    walk on the Compas Q1 and Q2 chains: byte-equal, in K x 3 launches
-   (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against 1;
+   (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against 1; then
+   (``attribute``) Q3/Q4 with B = 64 probes of 8 rows and 4 attributes on
+   all four configurations and Q7/Q8 on German and Compas: every attribute
+   hop's ``bitmatmul`` output equals its plain version, cell rows lie in
+   the record answers, and cells, hop traces and launch counts equal the
+   CPU run's (German, Compas, Census, a scale-factor-3 join); then
+   (``spill_hopcache``) a bitplane hop-cache with a budget of 1.5
+   relations on Compas and Census, every (source, dataset) pair probed
+   twice: answers equal the unbounded hop-cache's, Compas's counters the
+   CPU run's; then (``spill_tensors``) ``ProvenanceIndex(spill=)`` with a
+   quarter of the index's bytes on Compas, Census and the TPC-DI join:
+   Q1/Q2 on the walk, the fused walk and the default session equal the
+   unspilled index's, and the capture leaves less device memory allocated
+   (``memory_allocated`` and the allocator's requested bytes) by at least
+   the spilled payload; spill stores live under the ignored
+   ``build/spill_smoke/`` and are removed after each check;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -53,8 +69,9 @@ PyTorch built for CUDA.  It
    bitplane hop-cache.
 
 Every phase prints one JSON line.  Any failure raises and the exit code is
-not 0.  The last three lines are the kernel table, the card's name and
-power limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}``.
+not 0.  The last three lines are the kernel table (with each kernel's
+launches per path), the card's name and power limit as ``nvidia-smi``
+gives them, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -188,6 +205,102 @@ def word_err(a: torch.Tensor, b: torch.Tensor) -> int:
     ua = a.to(torch.int64) & 0xFFFFFFFF
     ub = b.to(torch.int64) & 0xFFFFFFFF
     return int((ua - ub).abs().max())
+
+
+def cells_subset_of_records(cells, records) -> bool:
+    """Every probe's cell rows lie in its record-level answer."""
+    return all(bool(torch.isin(c[:, 0], r).all()) for c, r in zip(cells, records))
+
+
+def attr_probe_sets(rng, n_cols: int, k: int = 4):
+    """B probes of ``k`` distinct attributes each."""
+    return [sorted(rng.choice(n_cols, size=min(k, n_cols), replace=False).tolist())
+            for _ in range(B)]
+
+
+def attribute_queries(idx, src, sink, q, how: bool):
+    """Q3 (forward cells) and Q4 (backward cells) of one configuration,
+    through the index's default session; with ``how`` also Q7/Q8."""
+    from repro_torch.provenance import prov
+
+    out = {
+        "q3": prov(idx).source(src).rows_batch(q["q1"]).attrs_batch(q["a_src"])
+        .forward().to(sink).run(),
+        "q4": prov(idx).source(sink).rows_batch(q["q2"]).attrs_batch(q["a_sink"])
+        .backward().to(src).run(),
+    }
+    if how:
+        out["q7"] = prov(idx).source(src).rows_batch(q["q1"][:8]).attrs_batch(q["a_src"][:8]) \
+            .forward().to(sink).how().run()
+        out["q8"] = prov(idx).source(sink).rows_batch(q["q2"][:8]).attrs_batch(q["a_sink"][:8]) \
+            .backward().to(src).how().run()
+    return out
+
+
+def same_attr_answers(got, want, what: str) -> None:
+    """Cells and hop traces (aligned by op position) of two runs agree."""
+    check(sorted(got) == sorted(want), f"{what}: query sets differ")
+    for key in got:
+        check(len(got[key]) == len(want[key]), f"{what} {key}: batch size")
+        for g, w in zip(got[key], want[key]):
+            if isinstance(g, tuple):
+                (g, gh), (w, wh) = g, w
+                check([(h.op_id, h.op_name, h.category, h.n_records) for h in gh]
+                      == [(h.op_id, h.op_name, h.category, h.n_records) for h in wh],
+                      f"{what} {key}: hop traces differ")
+            check(torch.equal(g.cpu(), w.cpu()), f"{what} {key}: cells differ")
+
+
+def fresh_store(name: str) -> Path:
+    """An empty spill directory under the ignored ``build/``."""
+    import shutil
+
+    root = ROOT / "build" / "spill_smoke" / name
+    shutil.rmtree(root, ignore_errors=True)
+    return root
+
+
+def spill_hopcache_run(idx, src, budget, src_mask, op_masks, name):
+    """A bitplane hop-cache with a spill tier over the linear chain ``idx``:
+    every (source, dataset) pair probed forward (``src_mask``) and backward
+    (``op_masks[k]`` at op k's output), twice.  Returns the hop-cache, its
+    spill policy and the answers in probe order."""
+    from repro_torch.core.hopcache import ComposedIndex
+    from repro_torch.core.spill import SpillPolicy
+
+    policy = SpillPolicy(path=str(fresh_store(name)))
+    ci = ComposedIndex(idx, memory_budget_bytes=budget, backend="bitplane", spill=policy)
+    out = []
+    for _ in range(2):
+        for op, mask in zip(idx.ops, op_masks):
+            d = op.output_id
+            out.append((ci.probe_forward(src_mask, src, d), ci.probe_backward(mask, d, src)))
+    return ci, policy, out
+
+
+def device_bytes(device) -> tuple:
+    """(``memory_allocated``, requested bytes) on ``device``.  The caching
+    allocator counts a block in ``memory_allocated`` at its size, which can
+    exceed the request by up to a cached block's remainder; its requested
+    bytes are what the live tensors asked for, exactly."""
+    return (torch.cuda.memory_allocated(device),
+            torch.cuda.memory_stats(device)["requested_bytes.all.current"])
+
+
+def capture_delta(make, device, spill=None):
+    """Capture one configuration into a fresh index: (index, source, sink,
+    the capture's ``device_bytes`` delta)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = device_bytes(device)
+    idx, src, sink = make(device, spill)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = device_bytes(device)
+    return idx, src, sink, (after[0] - before[0], after[1] - before[1])
+
 
 
 def main() -> int:
@@ -337,10 +450,30 @@ def main() -> int:
         bm_geometries.add(bitmatmul_geometry(m, bb.shape[1]))
         n_cases += 1
         del a, bb
+    # the attribute walk's shapes: A = B probes of 1-4 words of attributes
+    # (bits past K set, an empty row), B = an attribute plane of 1-104 rows
+    # and 1-4 words, its last word ragged
+    attr_geometries = set()
+    for k in (1, 8, 15, 24, 33, 40, 53, 60, 96, 104):
+        for nw in (1, 2, 3, 4):
+            for dens in (0.05, 0.5):
+                a = rand_bits(B, k, dens)
+                a[B // 2] = 0
+                if k % 32:
+                    a[:, -1] |= torch.tensor(-(1 << 31), dtype=torch.int32, device=dev)
+                bb = rand_bits(k, 32 * nw - 3 * nw, dens)
+                err = word_err(bitmatmul_cuda(a, bb), ref.bitmatmul_ref(a, bb))
+                check(err == 0, f"bitmatmul != plain at attribute shape K={k} Nw={nw}")
+                bm_err = max(bm_err, err)
+                attr_geometries.add(bitmatmul_geometry(B, bb.shape[1]))
+                n_cases += 1
+    torch.cuda.synchronize()
+    bm_geometries |= attr_geometries
     check({g.slice_words for g in bm_geometries} == set(SLICE_WORDS),
           f"edge geometries {sorted(bm_geometries)}")
     emit({"phase": "bitmatmul_vs_plain", "cases": n_cases, "max_abs_err": bm_err,
-          "tolerance": 0, "edge_geometries": sorted(list(g) for g in bm_geometries)})
+          "tolerance": 0, "edge_geometries": sorted(list(g) for g in bm_geometries),
+          "attribute_geometries": sorted(list(g) for g in attr_geometries)})
 
     rank_err = 0
     n_cases = 0
@@ -392,8 +525,8 @@ def main() -> int:
         data = sink.table.data[~sink.table.null]
         check(bool(torch.isfinite(data).all()), f"{name}: non-finite sink values")
 
-    def run_join(scale, device):
-        idx = ProvenanceIndex(f"tpcdi{scale}", device=device)
+    def run_join(scale, device, spill=None):
+        idx = ProvenanceIndex(f"tpcdi{scale}", device=device, spill=spill)
         left, right = U.make_tpcdi_join_inputs(scale, device=device)
         lt, rt = track(left, idx, "trade"), track(right, idx, "security")
         j = lt.join(rt, on="key", how="inner")
@@ -775,6 +908,279 @@ def main() -> int:
           "max_abs_err": 0, "tolerance": 0})
     del want_out, out
 
+    # -- 7b. attribute-level lineage: Q3/Q4 on every configuration, Q7/Q8 on
+    # German and Compas, through the default session (cells plans walk);
+    # every attribute hop is one bitmatmul launch, recorded with its inputs
+    arng = np.random.default_rng(SEED + 1)
+    for name, (idx, src, sink) in indexes.items():
+        queries[name]["a_src"] = attr_probe_sets(arng, idx.datasets[src].n_cols)
+        queries[name]["a_sink"] = attr_probe_sets(arng, idx.datasets[sink].n_cols)
+    real_bitmatmul = ops.bitmatmul
+    attr_hops = []
+
+    def recording_bitmatmul(a, b):
+        c = real_bitmatmul(a, b)
+        attr_hops.append((a, b, c))
+        return c
+
+    attr_card = {}
+    attr_launch = {}
+    ops.reset_launch_counts()
+    ops.bitmatmul = recording_bitmatmul
+    try:
+        for name, (idx, src, sink) in indexes.items():
+            before = ops.launch_counts().get("bitmatmul", 0)
+            attr_card[name] = attribute_queries(idx, src, sink, queries[name], how=name in cpu)
+            torch.cuda.synchronize()
+            attr_launch[name] = ops.launch_counts().get("bitmatmul", 0) - before
+    finally:
+        ops.bitmatmul = real_bitmatmul
+    attr_counts = ops.launch_counts()
+    check(attr_counts.get("bitmatmul", 0) == len(attr_hops) > 0,
+          f"attribute launches {attr_counts} against {len(attr_hops)} recorded hops")
+    attr_err = 0
+    for a, b, c in attr_hops:
+        attr_err = max(attr_err, word_err(c, ref.bitmatmul_ref(a, b)))
+    torch.cuda.synchronize()
+    check(attr_err == 0, "bitmatmul != plain on an attribute hop")
+    for name in indexes:
+        for key, k in (("q3", 0), ("q4", 1)):
+            check(cells_subset_of_records(attr_card[name][key], answers[name][k]),
+                  f"{name} {key}: a cell row outside the record answer")
+            check(any(c.numel() for c in attr_card[name][key]), f"{name} {key}: no cells")
+
+    # the CPU runs: German and Compas (phase 4's indexes), Census, and the
+    # join at scale factor 3 on both devices; cells, hop traces and the
+    # number of attribute hops dispatched must agree
+    make, run = U.USECASES["census"]
+    idx_c = ProvenanceIndex("census", device="cpu")
+    sink_c = run(idx_c, make(device="cpu"))
+    attr_cpu_sets = dict(cpu, census=(idx_c, idx_c.sources()[0], sink_c.dataset_id))
+    attr_cpu_launch = {}
+    for name, (i, s, t) in attr_cpu_sets.items():
+        ops.reset_launch_counts()
+        got = attribute_queries(i, s, t, queries[name], how=name in cpu)
+        attr_cpu_launch[name] = ops.launch_counts().get("bitmatmul", 0)
+        same_attr_answers(attr_card[name], got, f"{name}: card != CPU")
+        check(attr_cpu_launch[name] == attr_launch[name],
+              f"{name}: {attr_launch[name]} attribute launches on the card, "
+              f"{attr_cpu_launch[name]} on the CPU")
+    del idx_c, attr_cpu_sets
+    jc, jc_sink = run_join(3, "cpu")
+    jg, jg_sink = run_join(3, dev)
+    qa3 = {"q1": probes(jc.datasets["trade"].n_rows), "q2": probes(jc.datasets[jc_sink].n_rows),
+           "a_src": attr_probe_sets(arng, jc.datasets["trade"].n_cols),
+           "a_sink": attr_probe_sets(arng, jc.datasets[jc_sink].n_cols)}
+    sf3_launch = {}
+    sf3 = {}
+    for which, (i, t) in (("card", (jg, jg_sink)), ("cpu", (jc, jc_sink))):
+        ops.reset_launch_counts()
+        sf3[which] = attribute_queries(i, "trade", t, qa3, how=True)
+        torch.cuda.synchronize()
+        sf3_launch[which] = ops.launch_counts().get("bitmatmul", 0)
+    same_attr_answers(sf3["card"], sf3["cpu"], "tpcdi sf3: card != CPU")
+    check(sf3_launch["card"] == sf3_launch["cpu"] > 0,
+          f"tpcdi sf3 attribute launches {sf3_launch}")
+    del jc, jg, sf3
+
+    attr_latency = {}
+    for name, (idx, src, sink) in indexes.items():
+        qn = queries[name]
+        q3b = prov(idx).source(src).rows_batch(qn["q1"]).attrs_batch(qn["a_src"]) \
+            .forward().to(sink)
+        q4b = prov(idx).source(sink).rows_batch(qn["q2"]).attrs_batch(qn["a_sink"]) \
+            .backward().to(src)
+        attr_latency[name] = {"q3_ms": host_ms(q3b.run), "q4_ms": host_ms(q4b.run)}
+    attr_a, attr_b, _ = max(attr_hops, key=lambda h: (h[1].numel(), h[0].numel()))
+    emit({"phase": "attribute", "card": card, "B": B,
+          "bitmatmul_launches": attr_launch, "cpu_bitmatmul_launches": attr_cpu_launch,
+          "tpcdi_sf3_launches": sf3_launch, "launch_counts": attr_counts,
+          "hops_checked": len(attr_hops), "max_abs_err": attr_err, "tolerance": 0,
+          "hop_shapes": sorted({(tuple(a.shape), tuple(b.shape)) for a, b, _ in attr_hops}),
+          "cells": {n: {k: sum(int(c.shape[0]) for c in (r if k in ("q3", "q4")
+                                                        else [x for x, _ in r]))
+                        for k, r in v.items()} for n, v in attr_card.items()},
+          "equal_card_vs_cpu": ["german", "compas", "census", "tpcdi_sf3"],
+          "latency": attr_latency,
+          "attribute_hop": {"shape": {"A": list(attr_a.shape), "B": list(attr_b.shape)},
+                            "geometry": bitmatmul_geometry(attr_a.shape[0],
+                                                           attr_b.shape[1])._asdict(),
+                            "device_ms": device_ms(lambda: bitmatmul_cuda(attr_a, attr_b)),
+                            "host_paced_ms": event_ms(lambda: bitmatmul_cuda(attr_a, attr_b))}})
+    del attr_hops, attr_card
+
+    # -- 7c. the hop-cache's spill tier: a bitplane ComposedIndex whose budget
+    # holds about 1.5 relations, every (source, dataset) pair probed twice;
+    # answers equal the unbounded phase-6 hop-cache's, and on Compas the
+    # counters equal the CPU run's with the same budget
+    import shutil
+
+    from repro_torch.core.spill import SpillPolicy, _TensorFault
+
+    spill_hc = {}
+    spill_hc_launch = {}
+    spill_hc_counts = {}
+    for name in ("compas", "census"):
+        idx, src, sink = indexes[name]
+        full = bitplane[name]
+        rel_bytes = int(full.relation(src, sink).numel()) * 4
+        budget = int(1.5 * rel_bytes)
+        mrng = np.random.default_rng(SEED + 2)
+        src_mask = mask_stack(queries[name]["q1"], idx.datasets[src].n_rows)
+        op_masks = []
+        for op in idx.ops:
+            n = idx.datasets[op.output_id].n_rows
+            op_masks.append(mask_stack([sorted(set(mrng.integers(0, n, 8).tolist()))
+                                        for _ in range(B)], n))
+        # the counts cover the spilled hop-cache's run on the card alone: the
+        # unbounded index's probes and the CPU run below come after the read
+        ops.reset_launch_counts()
+        ci, policy, got = spill_hopcache_run(idx, src, budget, src_mask, op_masks,
+                                             f"hopcache_{name}")
+        torch.cuda.synchronize()
+        run_counts = ops.launch_counts()
+        spill_hc_launch[name] = run_counts.get("bitmatmul", 0)
+        for k, n in run_counts.items():
+            spill_hc_counts[k] = spill_hc_counts.get(k, 0) + n
+        st = ci.stats()
+        check(st["spills"] > 0 and st["rehydrations"] > 0, f"{name}: spill tier idle: {st}")
+        k = 0
+        for _ in range(2):
+            for op, mask in zip(idx.ops, op_masks):
+                d = op.output_id
+                check(torch.equal(got[k][0], full.probe_forward(src_mask, src, d))
+                      and torch.equal(got[k][1], full.probe_backward(mask, d, src)),
+                      f"{name}: spilled hop-cache answer != unbounded at {d}")
+                k += 1
+        stats_keys = ("entries", "bytes", "hits", "misses", "evictions", "extends",
+                      "recomposes", "spills", "rehydrations", "spilled_entries")
+        store_keys = ("entries", "segments", "live_bytes", "disk_bytes", "dead_bytes",
+                      "writes", "reads", "bytes_written", "bytes_read")
+        row = {"relation_bytes": rel_bytes, "budget_bytes": budget,
+               "stats": {k: st[k] for k in stats_keys},
+               "store": {k: st["spill"][k] for k in store_keys},
+               "bitmatmul_launches": spill_hc_launch[name]}
+        if name == "compas":
+            i_c, s_c, _ = cpu["compas"]
+            ops.reset_launch_counts()
+            ci_c, policy_c, got_c = spill_hopcache_run(
+                i_c, s_c, budget, src_mask.cpu(), [m.cpu() for m in op_masks], "hopcache_cpu")
+            cpu_launch = ops.launch_counts().get("bitmatmul", 0)
+            check(cpu_launch == spill_hc_launch[name],
+                  f"compas: {spill_hc_launch[name]} spilled hop-cache launches on the card, "
+                  f"{cpu_launch} on the CPU")
+            row["cpu_bitmatmul_launches"] = cpu_launch
+            st_c = ci_c.stats()
+            check({k: st_c[k] for k in stats_keys} == row["stats"]
+                  and {k: st_c["spill"][k] for k in store_keys} == row["store"],
+                  f"compas: spill counters card {row} != CPU {st_c}")
+            for (f, b), (fc, bc) in zip(got, got_c):
+                check(torch.equal(f.cpu(), fc) and torch.equal(b.cpu(), bc),
+                      "compas: spilled hop-cache card != CPU")
+            row["equal_cpu_counters"] = True
+            policy_c.store.close()
+            shutil.rmtree(policy_c.store.root, ignore_errors=True)
+            del ci_c, got_c
+        faults = []
+        for op in idx.ops:
+            d = op.output_id
+            if ci.residency(src, d) == "spilled" and len(faults) < 3:
+                n_bytes = idx.datasets[src].n_rows * ((idx.datasets[d].n_rows + 31) // 32) * 4
+                _, dt = sync_time(ci.relation, src, d)
+                faults.append({"pair": d, "bytes": n_bytes, "ms": dt * 1e3,
+                               "gb_per_s": n_bytes / dt / 1e9})
+        check(faults, f"{name}: no spilled pair left to fault")
+        row["faults"] = faults
+        spill_hc[name] = row
+        policy.store.close()
+        shutil.rmtree(policy.store.root, ignore_errors=True)
+        del ci, got
+    emit({"phase": "spill_hopcache", "card": card, "results": spill_hc,
+          "launch_counts": spill_hc_counts})
+
+    # -- 7d. op-tensor spill: ProvenanceIndex(spill=) with a budget of a
+    # quarter of the unspilled index's prov_nbytes(); Q1/Q2 through the
+    # walk, the fused walk and the default session, against the unspilled
+    # index captured beside it
+    def capture_usecase(name):
+        def make(device, spill):
+            idx = ProvenanceIndex(f"{name}_spill", device=device, spill=spill)
+            sink = U.USECASES[name][1](idx, U.USECASES[name][0](device=device))
+            return idx, idx.sources()[0], sink.dataset_id
+        return make
+
+    def capture_join20(device, spill):
+        idx, sink = run_join(20, device, spill)
+        return idx, "trade", sink
+
+    spill_t = {}
+    spill_t_walks = 0
+    for name, make in (("compas", capture_usecase("compas")),
+                       ("census", capture_usecase("census")),
+                       ("tpcdi_sf20", capture_join20)):
+        plain, s0, t0, plain_alloc = capture_delta(make, dev)
+        prov_bytes = plain.prov_nbytes()
+        budget = max(prov_bytes // 4, 1)
+        policy = SpillPolicy(path=str(fresh_store(f"tensors_{name}")), budget_bytes=budget)
+        sp, s1, t1, sp_alloc = capture_delta(make, dev, policy)
+
+        def within(stats):
+            # the policy never spills the last resident tensor
+            return stats["resident_bytes"] <= policy.high_watermark * budget \
+                or stats["resident_ops"] == 1
+
+        after_capture = sp.stats()["spill"]
+        spilled_payload = sum(op.tensor.nbytes() for op in sp.ops
+                              if isinstance(op.tensor, _TensorFault))
+        check(within(after_capture), f"{name}: resident bytes past the watermark {after_capture}")
+        for k, what in ((0, "memory_allocated"), (1, "requested bytes")):
+            check(plain_alloc[k] - sp_alloc[k] >= spilled_payload,
+                  f"{name}: capture kept {sp_alloc[k]} B ({what}) spilled against "
+                  f"{plain_alloc[k]} B, {spilled_payload} B spilled")
+        qn = queries[name]
+        routes = {}
+        for route, kw in (("walk", {"use_hopcache": False, "fused_walk": False}),
+                          ("fused_walk", {"use_hopcache": False, "fused_walk": True}),
+                          ("default", {})):
+            ss, ps = QuerySession(sp, **kw), QuerySession(plain, **kw)
+            ops.reset_launch_counts()
+            got = (q1(sp, s1, t1, qn["q1"], ss), q2(sp, s1, t1, qn["q2"], ss))
+            torch.cuda.synchronize()
+            walks = ops.launch_counts().get("batched_walk", 0)
+            if route == "fused_walk":
+                spill_t_walks += walks
+            want = (q1(plain, s0, t0, qn["q1"], ps), q2(plain, s0, t0, qn["q2"], ps))
+            for k in (0, 1):
+                same(got[k], want[k], f"{name} {route} Q{k + 1}: spilled != unspilled")
+                same(got[k], answers[name][k], f"{name} {route} Q{k + 1}: spilled != main path")
+            routes[route] = {"counters": dict(ss.counters), "batched_walk_launches": walks}
+        after_queries = sp.stats()["spill"]
+        check(within(after_queries), f"{name}: resident bytes past the watermark {after_queries}")
+        faults = []
+        for op in sp.ops:
+            if isinstance(op.tensor, _TensorFault) and op.tensor.nbytes() and len(faults) < 3:
+                n_bytes = op.tensor.nbytes()
+                # the fault happens on the attribute access: time it too
+                _, dt = sync_time(lambda: op.tensor.resident())
+                faults.append({"op": op.op_id, "bytes": n_bytes, "ms": dt * 1e3,
+                               "gb_per_s": n_bytes / dt / 1e9})
+        spill_t[name] = {
+            "prov_nbytes_after_capture": prov_bytes, "budget_bytes": budget,
+            "capture_allocated_bytes": {"unspilled": plain_alloc[0], "spilled": sp_alloc[0]},
+            "capture_requested_bytes": {"unspilled": plain_alloc[1], "spilled": sp_alloc[1]},
+            "spilled_payload_bytes": spilled_payload, "after_capture": after_capture,
+            "after_queries": {k: v for k, v in after_queries.items() if k != "store"},
+            "store": {k: after_queries["store"][k]
+                      for k in ("writes", "reads", "bytes_written", "bytes_read")},
+            "routes": routes, "faults": faults}
+        policy.store.close()
+        shutil.rmtree(policy.store.root, ignore_errors=True)
+        del plain, sp
+    check(spill_t_walks > 0, "the fused walk never ran over a spilled index")
+    check(any(v["spilled_payload_bytes"] for v in spill_t.values()), "no op tensor spilled")
+    emit({"phase": "spill_tensors", "card": card, "results": spill_t,
+          "batched_walk_launches": spill_t_walks})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -840,6 +1246,7 @@ def main() -> int:
         "compas_probe": bitmatmul_times(q1_mask, compas_rel, 5, 7),
         "compas_composition": bitmatmul_times(*compositions["compas"], 3, 5),
         "census_composition": bitmatmul_times(*compositions["census"], 1, 3),
+        "attribute_hop": bitmatmul_times(attr_a, attr_b, 20, 7),
     }
     del compositions
 
@@ -982,12 +1389,17 @@ def main() -> int:
         {"name": "batched_walk", "route": "cuda", "source": "src/repro_torch/csrc/batched_walk.cu",
          "replaces": "src/repro/kernels/batched_walk.py:44",
          "launches": main_counts.get("batched_walk", 0), "max_abs_err": walk_err,
+         "launches_by_path": {"walk": main_counts.get("batched_walk", 0),
+                              "spill_tensors": spill_t_walks},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
         {"name": "bitmatmul", "route": "cuda", "source": "src/repro_torch/csrc/bitmatmul.cu",
          "replaces": "src/repro/kernels/bitmatmul.py:37",
          "launches": bitplane_counts.get("bitmatmul", 0), "max_abs_err": bm_err,
+         "launches_by_path": {"hopcache_bitplane": bitplane_counts.get("bitmatmul", 0),
+                              "attribute": attr_counts.get("bitmatmul", 0),
+                              "spill_hopcache": spill_hc_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -1006,6 +1418,8 @@ def main() -> int:
     for k in ("batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"):
         n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")
+    for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts)):
+        check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

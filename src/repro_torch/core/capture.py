@@ -8,7 +8,9 @@ payloads into the tensors of §III-A, on the payload's device.
 Capture emits STRUCTURED tensors by default (identity scalars, gather
 slots over the payload, append block offsets); :func:`force_coo_capture`
 switches the explicit-COO construction back on for a scope (parity
-baselines).
+baselines).  :func:`strip_payload` / :func:`restore_payload` drop and
+rebuild the capture payload aliases of an op whose tensor the spill tier
+(:mod:`repro_torch.core.spill`) moved to disk.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.core.provtensor import (
     join_tensor,
 )
 
-__all__ = ["build_tensor", "force_coo_capture"]
+__all__ = ["build_tensor", "force_coo_capture", "strip_payload", "restore_payload"]
 
 _structured_stack = [True]
 
@@ -75,3 +77,48 @@ def build_tensor(info: CaptureInfo, structured: Optional[bool] = None,
         return append_tensor(info.n_in[0], info.n_in[1], structured=structured,
                              device=device)
     raise ValueError(f"unknown category {cat}")
+
+
+# ---------------------------------------------------------------------------
+# Spill-tier payload stripping (repro_torch.core.spill.TensorSpiller)
+# ---------------------------------------------------------------------------
+def _slot_column(tensor: ProvTensor, slot: int) -> torch.Tensor:
+    g = tensor.slot_gather(slot)
+    return g if g is not None else tensor.coo[:, 1 + slot]
+
+
+def strip_payload(info: CaptureInfo) -> None:
+    """Drop the capture payload tensors off ``info`` when the op's tensor is
+    spilled.  The structured slots hold these very tensors BY REFERENCE
+    (``kept_rows`` IS the gather slot's payload), so spilling the tensor
+    frees no device memory while the info-side alias survives.  Which
+    fields were stripped is remembered on the record so
+    :func:`restore_payload` puts back exactly what existed — a COO
+    HAUGMENT tensor alone cannot tell a stripped ``src_rows`` from
+    stripped multi-parent ``links``."""
+    stripped = []
+    for field in ("kept_rows", "src_rows", "join_pairs", "links"):
+        if getattr(info, field) is not None:
+            setattr(info, field, None)
+            stripped.append(field)
+    info._spill_stripped = tuple(stripped)
+
+
+def restore_payload(info: CaptureInfo, tensor: ProvTensor) -> None:
+    """Inverse of :func:`strip_payload`, rebuilding the payload fields from
+    a rehydrated tensor, value for value: the tensor constructors stored
+    these exact arrays per slot at capture time."""
+    for field in getattr(info, "_spill_stripped", ()):
+        if field == "kept_rows":
+            info.kept_rows = _slot_column(tensor, 0)
+        elif field == "src_rows":
+            info.src_rows = _slot_column(tensor, 0)
+        elif field == "join_pairs":
+            g0 = tensor.slot_gather(0)
+            if g0 is not None:
+                info.join_pairs = torch.stack([g0, tensor.slot_gather(1)], dim=1)
+            else:
+                info.join_pairs = tensor.coo[:, 1:3]
+        elif field == "links":
+            info.links = tensor.coo
+    info._spill_stripped = ()

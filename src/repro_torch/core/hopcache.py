@@ -35,9 +35,18 @@ probe.
   TRANSPOSED plane (accounted against the budget); both probe directions
   are the same select-OR, :func:`~repro_torch.kernels.ops.bitplane_probe`.
 
-The spill tier (``spill=``) is not ported yet (ROADMAP A7).  When NO path
-exists, the probe methods answer empty (matching the walking engine);
-``relation`` itself raises ``KeyError``.
+* **Spill-backed eviction** — with a ``spill=`` policy
+  (:mod:`repro_torch.core.spill`), LRU eviction past the byte budget's
+  high watermark serialises entries to the on-disk log (structured gathers
+  as one int32 array, CSR as its values/col/crow triple, bitplanes as the
+  packed words, written as uint32) instead of dropping them, freeing their
+  device memory; a probe of a spilled pair FAULTS it back (one read of the
+  log, one host-to-device copy per array, counted in ``rehydrations``)
+  rather than recomposing the chain.  Without ``spill=`` eviction drops at
+  the budget.
+
+When NO path exists, the probe methods answer empty (matching the walking
+engine); ``relation`` itself raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from repro_torch.core.provtensor import (
     pack_bitplane,
     unpack_bitplane,
 )
+from repro_torch.core.spill import device_tensor, host_array, resolve_spill
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import wrap_int32
 
@@ -155,9 +165,6 @@ class ComposedIndex:
         backend: Optional[str] = None,
         spill=None,
     ) -> None:
-        if spill is not None:
-            raise NotImplementedError(
-                "the hop-cache spill tier is not ported yet (ROADMAP A7)")
         if backend is None:
             backend = "auto"
         if backend not in ("auto", "csr", "bitplane"):
@@ -172,12 +179,21 @@ class ComposedIndex:
         self._ops_seen = len(index.ops)
         # probed-through sources: reach sets maintained incrementally
         self._reach: Dict[str, set] = {}
+        self._spill = resolve_spill(spill)
+        self._spill_store = self._spill.ensure_store() if self._spill else None
+        # keys whose entry is on disk and NOT resident; plus what the disk
+        # copy holds (backend, nnz) so an unchanged re-eviction skips the
+        # write (composed relations are immutable under the append-only DAG)
+        self._spilled: "OrderedDict[Tuple[str, str], bool]" = OrderedDict()
+        self._store_meta: Dict[Tuple[str, str], Tuple[str, int]] = {}
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.conversions = 0
         self.extends = 0
         self.recomposes = 0
+        self.spills = 0
+        self.rehydrations = 0
 
     # -- cache plumbing -----------------------------------------------------
     def _sync(self) -> None:
@@ -189,7 +205,7 @@ class ComposedIndex:
         tracked source's reach set absorbs them, and (auto backend) a new op
         whose on-path slots are all structured and whose on-path prefixes
         are all cached EXTENDS the warm relations by one closed-form step
-        now."""
+        now; a spilled op tensor on that path is faulted back for it."""
         n = len(self.index.ops)
         if n > self._ops_seen:
             for op in self.index.ops[self._ops_seen:n]:
@@ -218,6 +234,9 @@ class ComposedIndex:
                     prefixes[k] = e
             if len(prefixes) != len(slots):
                 continue
+            # the extension reads the gather slot: fault a spilled tensor
+            # back now rather than leave the relation to a full recompose
+            op.tensor.resident()
             acc: Optional[_Entry] = None
             for k in slots:
                 contrib = self._extend(prefixes[k], op, k)
@@ -239,28 +258,107 @@ class ComposedIndex:
         return reach
 
     def _evict_over_budget(self) -> None:
-        while self._bytes > self.memory_budget_bytes and len(self._cache) > 1:
-            _, evicted = self._cache.popitem(last=False)
+        if self._spill is None:
+            while self._bytes > self.memory_budget_bytes and len(self._cache) > 1:
+                _, evicted = self._cache.popitem(last=False)
+                self._bytes -= evicted.nbytes()
+                self.evictions += 1
+            return
+        # spill tier: watermark hysteresis — start evicting past high,
+        # spill LRU entries to disk down to low, so an append stream pays
+        # one burst of writes per crossing instead of one per insert
+        high = self.memory_budget_bytes * self._spill.high_watermark
+        low = self.memory_budget_bytes * self._spill.low_watermark
+        if self._bytes <= high:
+            return
+        while self._bytes > low and len(self._cache) > 1:
+            key, evicted = self._cache.popitem(last=False)
             self._bytes -= evicted.nbytes()
             self.evictions += 1
+            self._spill_entry(key, evicted)
+
+    def _store_key(self, key: Tuple[str, str]) -> tuple:
+        return ("rel", self.index.name) + key
+
+    def _spill_entry(self, key: Tuple[str, str], entry: _Entry) -> None:
+        entry.relT = None  # lazily rebuilt after a fault; never serialised
+        if self._store_meta.get(key) != (entry.backend, entry.nnz):
+            meta = {"backend": entry.backend, "rows": entry.rows,
+                    "cols": entry.cols, "nnz": entry.nnz,
+                    "identity": entry.backend == "structured" and entry.rel is None}
+            if entry.backend == "structured":
+                arrays = {} if entry.rel is None else {"gather": host_array(entry.rel)}
+            elif entry.backend == "csr":
+                r = entry.rel
+                arrays = {"data": host_array(r.values()),
+                          "indices": host_array(r.col_indices()),
+                          "indptr": host_array(r.crow_indices())}
+            else:
+                arrays = {"plane": host_array(entry.rel, packed=True)}
+            self._spill_store.put(self._store_key(key), arrays, meta)
+            self._store_meta[key] = (entry.backend, entry.nnz)
+        self._spilled[key] = True
+        self.spills += 1
+
+    def _fault(self, key: Tuple[str, str]) -> Optional[_Entry]:
+        """Rehydrate one spilled composed relation onto the device, byte for
+        byte what was evicted; the entry re-enters the LRU as MRU."""
+        try:
+            meta, arrays = self._spill_store.get(self._store_key(key))
+        except KeyError:
+            self._spilled.pop(key, None)
+            self._store_meta.pop(key, None)
+            return None  # dropped by a disk budget: rebuild from scratch
+        dev = self.device
+        backend = meta["backend"]
+        rows, cols, nnz = int(meta["rows"]), int(meta["cols"]), int(meta["nnz"])
+        if backend == "structured":
+            rel = None if meta["identity"] else device_tensor(arrays["gather"], dev)
+        elif backend == "csr":
+            rel = torch.sparse_csr_tensor(
+                device_tensor(arrays["indptr"], dev), device_tensor(arrays["indices"], dev),
+                device_tensor(arrays["data"], dev), size=(rows, cols), check_invariants=False)
+        else:
+            rel = device_tensor(arrays["plane"], dev)
+        entry = _Entry(backend, rel, rows, cols, nnz)
+        self._spilled.pop(key, None)
+        self.rehydrations += 1
+        self._insert(key, entry)
+        if key not in self._cache:
+            self._spilled[key] = True  # declined (over budget); disk copy stays
+        return entry
 
     def _insert(self, key: Tuple[str, str], entry: _Entry) -> None:
         nbytes = entry.nbytes()
         if nbytes > self.memory_budget_bytes:
-            return  # larger than the whole budget: served uncached
+            # larger than the whole budget: with a spill tier, park it on
+            # disk (a fault beats recomposing the chain); without one,
+            # serve uncached
+            if self._spill_store is not None:
+                self._spill_entry(key, entry)
+            return
         old = self._cache.pop(key, None)
         if old is not None:
             # overwrite releases the old entry's bytes FIRST
             self._bytes -= old.nbytes()
         self._cache[key] = entry
         self._bytes += nbytes
+        self._spilled.pop(key, None)  # resident again; disk copy kept as-is
         self._evict_over_budget()
 
     def _lookup(self, key: Tuple[str, str]) -> Optional[_Entry]:
         entry = self._cache.get(key)
         if entry is not None:
             self._cache.move_to_end(key)
-        return entry
+            return entry
+        if key in self._spilled:
+            return self._fault(key)
+        return None
+
+    def _peek(self, key: Tuple[str, str]) -> bool:
+        """Composed and answerable without recomposition (resident OR
+        spilled) — no LRU touch, no fault, no composition."""
+        return key in self._cache or key in self._spilled
 
     # -- backend primitives ---------------------------------------------------
     def _resolve_backend(self, density: float) -> str:
@@ -441,7 +539,8 @@ class ComposedIndex:
     def _pending_ops(self, src: str, dst: str, reach: set) -> List[object]:
         """Ops that must run to compose ``(src, dst)``: backward DFS from
         ``dst``, stopping at ``src`` and at datasets whose ``(src, .)``
-        relation is already composed — in topological (op-id) order."""
+        relation is already composed (resident or spilled) — in
+        topological (op-id) order."""
         pending: Dict[int, object] = {}
         visited = set()
         stack = [dst]
@@ -450,7 +549,7 @@ class ComposedIndex:
             if d == src or d in visited:
                 continue
             visited.add(d)
-            if (src, d) in self._cache:
+            if self._peek((src, d)):
                 continue
             op = self.index.ops[self.index.producer[d]]
             pending[op.op_id] = op
@@ -662,16 +761,23 @@ class ComposedIndex:
     # -- mask-stack probes (the QuerySession entry points) ---------------------
     def contains(self, src: str, dst: str) -> bool:
         """Whether the ``src`` -> ``dst`` relation is already composed (no
-        LRU touch, no composition) — the planner's routing test."""
+        LRU touch, no composition) — the planner's routing test.  A SPILLED
+        entry counts: faulting it back is one read of the log, far cheaper
+        than the walk or recompose the router would otherwise pick."""
         self._sync()
-        return (src, dst) in self._cache
+        return self._peek((src, dst))
 
     def residency(self, src: str, dst: str) -> Optional[str]:
         """Where the composed ``(src, dst)`` relation lives right now:
-        ``"ram"`` (resident on the index's device) or None (not composed).
-        No LRU touch — the EXPLAIN surface reads this."""
+        ``"ram"`` (resident on the index's device), ``"spilled"`` (on
+        disk), or None (not composed).  No LRU touch, no fault — the
+        EXPLAIN surface reads this."""
         self._sync()
-        return "ram" if (src, dst) in self._cache else None
+        if (src, dst) in self._cache:
+            return "ram"
+        if (src, dst) in self._spilled:
+            return "spilled"
+        return None
 
     def _stack(self, masks) -> torch.Tensor:
         return torch.as_tensor(masks).to(device=self.device, dtype=torch.bool)
@@ -720,29 +826,40 @@ class ComposedIndex:
 
     # -- impact invalidation --------------------------------------------------
     def stale_entries(self, datasets) -> List[Tuple[str, str, str]]:
-        """Composed entries whose ``src`` -> ``dst`` DAG region intersects
-        ``datasets``, as ``(src, dst, residency)`` triples — the relations
-        an erasure or rewrite of those datasets' rows leaves stale.
-        Enumeration only: nothing is dropped, no LRU touch."""
+        """Composed entries (resident or spilled) whose ``src`` -> ``dst``
+        DAG region intersects ``datasets``, as ``(src, dst, residency)``
+        triples — the relations an erasure or rewrite of those datasets'
+        rows leaves stale.  Enumeration only: nothing is dropped, no LRU
+        touch, no fault."""
         self._sync()
         affected = [d for d in set(datasets) if d in self.index.datasets]
         if not affected:
             return []
+        keys = [(k, "ram") for k in self._cache]
+        keys += [(k, "spilled") for k in self._spilled]
         out = []
-        for src, dst in self._cache:
+        for (src, dst), residency in keys:
             if any(self.index.path_exists(src, m) and self.index.path_exists(m, dst)
                    for m in affected):
-                out.append((src, dst, "ram"))
+                out.append((src, dst, residency))
         return out
 
     def invalidate_datasets(self, datasets) -> List[Tuple[str, str, str]]:
-        """Drop every :meth:`stale_entries` entry and release its bytes;
-        returns the dropped triples."""
+        """Drop every :meth:`stale_entries` entry: resident entries leave the
+        LRU (their bytes released), disk copies are DELETED from the spill
+        store.  Returns the dropped triples."""
         dropped = self.stale_entries(datasets)
         for src, dst, _residency in dropped:
-            entry = self._cache.pop((src, dst), None)
+            key = (src, dst)
+            entry = self._cache.pop(key, None)
             if entry is not None:
                 self._bytes -= entry.nbytes()
+            self._spilled.pop(key, None)
+            # a resident entry may ALSO hold a stale disk copy (spilled
+            # once, faulted back): _store_meta remembers it — delete both
+            if key in self._store_meta:
+                del self._store_meta[key]
+                self._spill_store.delete(self._store_key(key))
         return dropped
 
     # -- introspection --------------------------------------------------------
@@ -750,7 +867,7 @@ class ComposedIndex:
         per_backend = {"csr": 0, "bitplane": 0, "structured": 0}
         for entry in self._cache.values():
             per_backend[entry.backend] += 1
-        return {
+        out = {
             "index": self.index.name,
             "backend": self.backend,
             "entries": len(self._cache),
@@ -765,7 +882,10 @@ class ComposedIndex:
             "conversions": self.conversions,
             "extends": self.extends,
             "recomposes": self.recomposes,
-            "spills": 0,
-            "rehydrations": 0,
-            "spilled_entries": 0,
+            "spills": self.spills,
+            "rehydrations": self.rehydrations,
+            "spilled_entries": len(self._spilled),
         }
+        if self._spill_store is not None:
+            out["spill"] = self._spill_store.stats()
+        return out

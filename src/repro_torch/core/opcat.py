@@ -1,8 +1,10 @@
 """Operation taxonomy (paper Table I / Section II) and capture payloads.
 
-Attribute maps are schema-level: their bitsets, permutation lists and
-packed attribute planes stay on the host as CPU tensors (at most a few
-hundred bits each).  The record-level payload of a :class:`CaptureInfo`
+Attribute maps are schema-level: their bitsets and permutation lists stay
+on the host as CPU tensors (at most a few hundred bits each).  Their packed
+attribute planes, which the attribute walk contracts against, are built
+there and memoised on the device of the index that queries them.  The
+record-level payload of a :class:`CaptureInfo`
 (``kept_rows``, ``src_rows``, ``join_pairs``, ``links``) lies on the device
 of the table the op ran on.
 """
@@ -14,6 +16,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.provtensor import pack_pairs
 from repro_torch.core.schema import Bitset, rank_positions
 
@@ -100,22 +103,33 @@ class AttrMap:
             return torch.arange(k, dtype=torch.int32), outpos[:k]
         raise ValueError(self.kind)
 
-    def fwd_plane(self, n_in: int, n_out: int) -> torch.Tensor:
-        """int32 (n_in, max(ceil(n_out/32), 1)): row i = packed output attrs
-        fed by input attr i.  Memoized per shape."""
-        key = ("f", n_in, n_out)
-        if key not in self._planes:
+    def _plane(self, key: tuple, device) -> torch.Tensor:
+        """The plane under ``key``, packed on the host once and memoised on
+        ``device`` alone (one copy, so ``nbytes`` counts it once)."""
+        device = resolve_device(device)
+        plane = self._planes.get(key)
+        if plane is None:
+            direction, n_in, n_out = key
             i, o = self.pairs(n_in, n_out)
-            self._planes[key] = pack_pairs(i, o, n_in, n_out, min_words=1)
-        return self._planes[key]
+            if direction == "f":
+                plane = pack_pairs(i, o, n_in, n_out, min_words=1)
+            else:
+                plane = pack_pairs(o, i, n_out, n_in, min_words=1)
+            plane = plane.to(device)
+            self._planes[key] = plane
+        elif plane.device != device:
+            raise ValueError(f"attribute plane memoised on {plane.device}, asked for {device}")
+        return plane
 
-    def bwd_plane(self, n_in: int, n_out: int) -> torch.Tensor:
-        """int32 (n_out, max(ceil(n_in/32), 1)): the transposed relation."""
-        key = ("b", n_in, n_out)
-        if key not in self._planes:
-            i, o = self.pairs(n_in, n_out)
-            self._planes[key] = pack_pairs(o, i, n_out, n_in, min_words=1)
-        return self._planes[key]
+    def fwd_plane(self, n_in: int, n_out: int, device) -> torch.Tensor:
+        """int32 (n_in, max(ceil(n_out/32), 1)) on ``device``: row i = packed
+        output attrs fed by input attr i.  Memoized per shape."""
+        return self._plane(("f", n_in, n_out), device)
+
+    def bwd_plane(self, n_in: int, n_out: int, device) -> torch.Tensor:
+        """int32 (n_out, max(ceil(n_in/32), 1)) on ``device``: the transposed
+        relation."""
+        return self._plane(("b", n_in, n_out), device)
 
 
 @dataclasses.dataclass

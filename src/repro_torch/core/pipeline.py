@@ -5,7 +5,8 @@ Holds, per pipeline: dataset records, operation records with precedence
 the materialization policy (§III-E): source/sink datasets always kept,
 inputs of *contextual* operations materialized, everything else
 recomputable.  Every table and tensor the index holds lies on
-``index.device``.
+``index.device``; with ``spill=`` cold op tensors move to an on-disk log
+(:mod:`repro_torch.core.spill`) and fault back on access.
 """
 from __future__ import annotations
 
@@ -49,13 +50,15 @@ class ProvenanceIndex:
     """Device-resident index of one pipeline's provenance.
 
     ``device=None`` means the CUDA card and raises without one; pass
-    ``device="cpu"`` to hold the index on the host.
+    ``device="cpu"`` to hold the index on the host.  ``spill`` bounds the
+    resident bytes of op tensors: ``True``, a path, a
+    :class:`~repro_torch.core.spill.SpillStore` or a
+    :class:`~repro_torch.core.spill.SpillPolicy` (see
+    :func:`~repro_torch.core.spill.resolve_spill`); cold tensors serialise
+    to the on-disk log and fault back on access.
     """
 
     def __init__(self, name: str = "pipeline", device=None, spill=None) -> None:
-        if spill is not None and spill is not False:
-            raise NotImplementedError(
-                "out-of-core spill is not ported yet (ROADMAP A7)")
         self.name = name
         self.device = resolve_device(device)
         self.datasets: Dict[str, DatasetRecord] = {}
@@ -65,6 +68,11 @@ class ProvenanceIndex:
         self._composed = None                       # shared ComposedIndex
         self._session = None                        # shared QuerySession
         self._record_hooks: List = []               # capture observers
+        self._spill = None                          # op-tensor residency manager
+        if spill is not None and spill is not False:
+            from repro_torch.core.spill import TensorSpiller, resolve_spill
+
+            self._spill = TensorSpiller(self, resolve_spill(spill))
 
     # -- capture hooks ---------------------------------------------------------
     def add_record_hook(self, fn):
@@ -112,6 +120,8 @@ class ProvenanceIndex:
         self.producer[output_id] = op.op_id
         for d in input_ids:
             self.consumers.setdefault(d, []).append(op.op_id)
+        if self._spill is not None:
+            self._spill.on_record(op)
         return op
 
     def record(
@@ -216,6 +226,7 @@ class ProvenanceIndex:
         return self._composed
 
     def export(self, dataset_id: str):
+        """A read-only boundary handle over ``dataset_id`` (federation)."""
         raise NotImplementedError(
             "boundary handles (federation) are not ported yet (ROADMAP A8)")
 
@@ -236,10 +247,27 @@ class ProvenanceIndex:
     # -- memory accounting (Table IX / Table XI) --------------------------------
     def prov_nbytes(self) -> int:
         """Bytes of the provenance encoding proper: tensors (with built
-        mirrors) + schema bitsets/permutation lists."""
+        mirrors) + schema bitsets/permutation lists/attribute planes.  A
+        spilled tensor counts its payload bytes off its metadata, without
+        being faulted back.  Materialized datasets are not provenance."""
         total = 0
         for op in self.ops:
             total += op.tensor.nbytes()
             for amap in op.info.attr_maps:
                 total += amap.nbytes()
         return total
+
+    def materialized_nbytes(self) -> int:
+        return sum(r.table.nbytes() for r in self.datasets.values() if r.table is not None)
+
+    def stats(self) -> Dict[str, object]:
+        out = {
+            "ops": len(self.ops),
+            "datasets": len(self.datasets),
+            "prov_bytes": self.prov_nbytes(),
+            "materialized_bytes": self.materialized_nbytes(),
+            "nnz": sum(op.tensor.nnz for op in self.ops),
+        }
+        if self._spill is not None:
+            out["spill"] = self._spill.stats()
+        return out

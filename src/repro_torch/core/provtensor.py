@@ -100,6 +100,10 @@ class CSR:
         return CSR(n_rows=n_rows, n_cols=n_cols, row_ptr=row_ptr,
                    col_idx=(key & 0xFFFFFFFF).to(torch.int32))
 
+    def neighbors(self, q: int) -> torch.Tensor:
+        """Row ``q``'s column indices (int32), in order."""
+        return self.col_idx[int(self.row_ptr[q]): int(self.row_ptr[q + 1])]
+
     def _valid_queries(self, qs) -> torch.Tensor:
         qs = torch.as_tensor(qs, dtype=torch.int64, device=self.row_ptr.device).reshape(-1)
         return qs[(qs >= 0) & (qs < self.n_rows)]
@@ -387,6 +391,10 @@ class ProvTensor:
             self._coo = torch.stack(cols, dim=1)
         return self._coo
 
+    def as_coo(self) -> "ProvTensor":
+        """A forced-COO twin of this tensor (parity baselines)."""
+        return ProvTensor(n_out=self.n_out, n_in=self.n_in, coo=self.coo.clone())
+
     # -- per-slot relation statistics (the cost model reads these) -----------
     def slot_nnz(self, inp: int) -> int:
         """nnz of the input-``inp`` -> output relation: links that are real
@@ -399,6 +407,10 @@ class ProvTensor:
             self._slot_nnz[inp] = s.n_links() if s is not None else \
                 int(torch.count_nonzero(self._coo[:, 1 + inp] >= 0))
         return self._slot_nnz[inp]
+
+    def slot_shape(self, inp: int) -> tuple:
+        """(rows, cols) of the input-``inp`` forward relation."""
+        return (self.n_in[inp], self.n_out)
 
     def slot_density(self, inp: int) -> float:
         """nnz / (rows * cols) of the input-``inp`` forward relation."""
@@ -555,7 +567,14 @@ class ProvTensor:
         return ProvTensor(n_out=self.n_out, n_in=self.n_in,
                           coo=torch.unique(coo, dim=0))
 
-    # -- payload round-trip ----------------------------------------------------
+    # -- payload round-trip (the spill tier's serialisation) -------------------
+    def resident(self) -> "ProvTensor":
+        """This tensor, guaranteed resident.  A real tensor answers itself;
+        a spill-tier :class:`~repro_torch.core.spill._TensorFault`
+        intercepts this to rehydrate — callers about to read capture payload
+        aliases off ``op.info`` (recompute) touch it first."""
+        return self
+
     def to_payload(self) -> Tuple[dict, dict]:
         """(meta, arrays) of the CANONICAL regime only; the lazily-built
         mirrors rebuild byte-identically after :meth:`from_payload`.  Same
@@ -580,7 +599,9 @@ class ProvTensor:
     @staticmethod
     def from_payload(meta: dict, arrays: dict, device=None) -> "ProvTensor":
         """Inverse of :meth:`to_payload`; ``arrays`` may be numpy arrays (a
-        payload from ``repro``) or tensors, and land on ``device``."""
+        payload from ``repro``, or the spill store's read-only memmap
+        views: each is copied once into a writable host array) or tensors,
+        and land on ``device`` in one copy each."""
         device = resolve_device(device)
 
         def _arr(x) -> torch.Tensor:

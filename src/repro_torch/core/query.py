@@ -1,39 +1,81 @@
-"""Record-level provenance queries (paper Section IV, Table VII: Q1/Q2, Q5/Q6).
+"""Provenance query processing (paper Section IV, Table VII: Q1-Q11).
 
-The physical layer under :mod:`repro_torch.provenance`: record-level
-queries chain ``project(slice(T, p_in, rows), p_out)`` hops over the
-topologically ordered op DAG, on ``(B, n)`` bool mask stacks on the
-index's device.
+Two layers, as in ``repro``:
+
+**The physical layer** (used by :mod:`repro_torch.provenance`):
+record-level queries chain ``project(slice(T, p_in, rows), p_out)`` hops
+over the topologically ordered op DAG, on ``(B, n)`` bool mask stacks on
+the index's device; attribute-level queries (Q3/Q4/Q7/Q8) additionally
+thread (row-set x attr-set) terms through the Table-VI attribute maps.
 
 * The batch walkers answer a whole probe batch in one pass over the DAG;
   structured op tensors answer each hop with a take or a scatter, the
   others with one ragged CSR gather for the whole batch.  With
   ``collect_hops`` they also return per-probe :class:`Hop` traces
-  (how-provenance, Q5/Q6).
+  (how-provenance, Q5-Q8), read with one host copy per hop.
 * :func:`fused_walk_record_masks_batch` answers a linear chain in ONE
   launch of the fused K-hop kernel (:func:`repro_torch.kernels.ops.batched_walk`).
+* A term is ``(rows (B, n) bool, attr words (B, nw) int32)`` on the
+  index's device.  Each attribute hop contracts the packed attr words
+  against the op's memoised attribute plane
+  (:meth:`~repro_torch.core.opcat.AttrMap.fwd_plane` / ``bwd_plane``) with
+  :func:`~repro_torch.core.provtensor.bitplane_or_reduce`, i.e. one
+  ``bitmatmul`` dispatch per live (op, input, term) hop: the kernel for an
+  index on the card, its plain version on the CPU.  ``repro`` runs this
+  contraction in numpy on the host; the port keeps the rule that the
+  operands' device decides.
+* :func:`_cells_batch` turns the terms that reach the target into sorted
+  ``(n, 2)`` int64 cell lists per probe, from the selected rows alone
+  (no ``(B, n_rows, nw)`` accumulator).
 
-The attribute-level walkers (Q3/Q4/Q7/Q8) and the legacy ``q*`` shims
-belong to a later slice (ROADMAP A5b).
+**The legacy shims**: ``q1_forward`` ... ``q11_co_dependency`` are thin
+deprecation shims over :mod:`repro_torch.provenance`, warning once each;
+they keep the old single-vs-batch guess (:func:`is_probe_batch`) and warn
+with :class:`~repro_torch.provenance.plan.AmbiguousProbeWarning` where it
+is ambiguous (an empty list; a 1-D integer array).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import warnings
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.opcat import AttrMap
 from repro_torch.core.pipeline import ProvenanceIndex
-from repro_torch.core.provtensor import pack_bitplane, unpack_bitplane
+from repro_torch.core.provtensor import (
+    bitplane_or_reduce,
+    pack_bitplane,
+    pack_mask,
+    unpack_bitplane,
+)
 
 __all__ = [
     "Hop",
+    "forward_record_masks",
+    "backward_record_masks",
     "forward_record_masks_batch",
     "backward_record_masks_batch",
     "fused_walk_record_masks_batch",
+    "record_masks_terms_batch",
+    "attr_propagate_terms_batch",
     "is_probe_batch",
+    "q1_forward",
+    "q2_backward",
+    "q3_forward_attr",
+    "q4_backward_attr",
+    "q5_forward_how",
+    "q6_backward_how",
+    "q7_forward_attr_how",
+    "q8_backward_attr_how",
+    "q9_all_transformations",
+    "q10_co_contributory",
+    "q11_co_dependency",
 ]
+
+Term = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +141,45 @@ def _trace(hops: List[List[Hop]], op, src_id: str, dst_id: str,
                                src_id, dst_id, int(c)))
 
 
+def _trace_terms(hops: List[List[Hop]], op, src_id: str, dst_id: str,
+                 new_rm: torch.Tensor, new_aw: torch.Tensor) -> None:
+    """Record a hop for every probe whose term survives ``op`` with
+    non-empty rows AND attrs (one host read for the whole batch)."""
+    counts = new_rm.sum(dim=1)
+    live = (counts > 0) & (new_aw != 0).any(dim=1)
+    for b, c in enumerate(torch.where(live, counts, 0).tolist()):
+        if c:
+            hops[b].append(Hop(op.op_id, op.info.op_name, op.info.category.value,
+                               src_id, dst_id, int(c)))
+
+
 # ---------------------------------------------------------------------------
 # Record-level propagation (Q1/Q2 cores)
 # ---------------------------------------------------------------------------
+def forward_record_masks(
+    index: ProvenanceIndex, src: str, rows, collect_hops: bool = False
+) -> Tuple[Dict[str, torch.Tensor], List[Hop]]:
+    """Propagate ONE row probe from ``src`` to every reachable dataset:
+    ``({dataset: (n,) bool}, hops)`` — the batch walker at B = 1 (the hop
+    list is empty unless ``collect_hops``)."""
+    mask = _as_mask(rows, index.datasets[src].n_rows, index.device)[None, :]
+    if not collect_hops:
+        return {d: m[0] for d, m in forward_record_masks_batch(index, src, mask).items()}, []
+    masks, hops = forward_record_masks_batch(index, src, mask, collect_hops=True)
+    return {d: m[0] for d, m in masks.items()}, hops[0]
+
+
+def backward_record_masks(
+    index: ProvenanceIndex, dst: str, rows, collect_hops: bool = False
+) -> Tuple[Dict[str, torch.Tensor], List[Hop]]:
+    """The backward twin of :func:`forward_record_masks`."""
+    mask = _as_mask(rows, index.datasets[dst].n_rows, index.device)[None, :]
+    if not collect_hops:
+        return {d: m[0] for d, m in backward_record_masks_batch(index, dst, mask).items()}, []
+    masks, hops = backward_record_masks_batch(index, dst, mask, collect_hops=True)
+    return {d: m[0] for d, m in masks.items()}, hops[0]
+
+
 def forward_record_masks_batch(
     index: ProvenanceIndex, src: str, rows_batch, collect_hops: bool = False
 ):
@@ -225,6 +303,221 @@ def fused_walk_record_masks_batch(
     return unpack_bitplane(out_bits, index.datasets[dst].n_rows)
 
 
+def _ops_from_entries(index: ProvenanceIndex, entries, direction: str):
+    """Ops reachable from ANY entry dataset, in traversal order.
+
+    Op registration order is topological, so sorting the union by ``op_id``
+    (descending for ``"bwd"``) reproduces the single-entry walk order
+    exactly."""
+    by_id = {}
+    for ds in entries:
+        ops = (index.downstream_ops(ds) if direction == "fwd"
+               else index.upstream_ops(ds))
+        for op in ops:
+            by_id[op.op_id] = op
+    out = [by_id[i] for i in sorted(by_id)]
+    if direction == "bwd":
+        out.reverse()
+    return out
+
+
+def record_masks_terms_batch(
+    index: ProvenanceIndex, entry_masks, direction: str,
+    collect_hops: bool = False,
+):
+    """Record propagation seeded at ARBITRARY datasets (federated segments).
+
+    ``entry_masks`` maps dataset id -> ``(B, n_rows)`` bool probe stacks.
+    The multi-seed twin of :func:`forward_record_masks_batch` /
+    :func:`backward_record_masks_batch`: one pass over every op reachable
+    from any entry, per-probe hop traces identical to the single-entry
+    walkers.  Returns ``(masks, hops)`` with ``collect_hops``, else
+    ``masks``."""
+    dev = index.device
+    masks: Dict[str, torch.Tensor] = {
+        ds: torch.as_tensor(m).to(device=dev, dtype=torch.bool)
+        for ds, m in entry_masks.items()
+    }
+    if not masks:
+        raise ValueError("record_masks_terms_batch needs at least one entry")
+    B = next(iter(masks.values())).shape[0]
+    hops: List[List[Hop]] = [[] for _ in range(B)]
+    for op in _ops_from_entries(index, list(masks), direction):
+        if direction == "fwd":
+            out_mask = masks.get(op.output_id)
+            if out_mask is None:
+                out_mask = torch.zeros((B, op.tensor.n_out), dtype=torch.bool, device=dev)
+            for k, in_id in enumerate(op.input_ids):
+                if in_id in masks and bool(masks[in_id].any()):
+                    contrib = op.tensor.forward_mask_batch(k, masks[in_id])
+                    if collect_hops:
+                        _trace(hops, op, in_id, op.output_id, contrib)
+                    out_mask = out_mask | contrib
+            masks[op.output_id] = out_mask
+        else:
+            if op.output_id not in masks or not bool(masks[op.output_id].any()):
+                continue
+            for k, in_id in enumerate(op.input_ids):
+                contrib = op.tensor.backward_mask_batch(k, masks[op.output_id])
+                if collect_hops:
+                    _trace(hops, op, op.output_id, in_id, contrib)
+                prev = masks.get(in_id)
+                masks[in_id] = contrib if prev is None else prev | contrib
+    if collect_hops:
+        return masks, hops
+    return masks
+
+
+# ---------------------------------------------------------------------------
+# Attribute maps (Table VI bitsets -> per-op attr propagation).  An attr
+# mask is PACKED int32 words; one op hop is a select-OR contraction of the
+# packed mask against the op's memoised attribute plane.
+# ---------------------------------------------------------------------------
+def _attrs_forward(amap: AttrMap, attrs: torch.Tensor, n_out_attrs: int) -> torch.Tensor:
+    """Map an input-attr mask to the output-attr mask through one op input."""
+    attrs = torch.as_tensor(attrs).to(torch.bool)
+    plane = amap.fwd_plane(attrs.shape[0], n_out_attrs, attrs.device)
+    words = bitplane_or_reduce(pack_mask(attrs)[None, :], plane, attrs.shape[0])
+    return unpack_bitplane(words, n_out_attrs)[0]
+
+
+def _attrs_backward(amap: AttrMap, attrs: torch.Tensor, n_in_attrs: int) -> torch.Tensor:
+    attrs = torch.as_tensor(attrs).to(torch.bool)
+    plane = amap.bwd_plane(n_in_attrs, attrs.shape[0], attrs.device)
+    words = bitplane_or_reduce(pack_mask(attrs)[None, :], plane, attrs.shape[0])
+    return unpack_bitplane(words, n_in_attrs)[0]
+
+
+def _any2(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a.any() and b.any()`` in one host read."""
+    return bool(torch.stack([a.any(), (b != 0).any()]).all())
+
+
+# ---------------------------------------------------------------------------
+# Attribute-level queries (Q3/Q4/Q7/Q8): (row-mask, packed-attr-words) terms
+# ---------------------------------------------------------------------------
+def _attr_propagate(
+    index: ProvenanceIndex, start: str, rows, attrs, direction: str,
+    collect_hops: bool = False,
+):
+    """Single-probe term propagation, ``(terms, hops)`` with terms of
+    ``((n,) bool, (nw,) int32)``: :func:`_attr_propagate_batch` at B = 1."""
+    dev = index.device
+    ds0 = index.datasets[start]
+    out = _attr_propagate_batch(
+        index, start, _as_mask(rows, ds0.n_rows, dev)[None, :],
+        _as_mask(attrs, ds0.n_cols, dev)[None, :], direction, collect_hops=collect_hops)
+    terms = {d: [(rm[0], aw[0]) for rm, aw in ts] for d, ts in out[0].items()}
+    return terms, out[2][0] if collect_hops else []
+
+
+def attr_propagate_terms_batch(
+    index: ProvenanceIndex, entry_terms, direction: str,
+    collect_hops: bool = False,
+):
+    """Term propagation seeded at ARBITRARY datasets (federated segments).
+
+    ``entry_terms`` maps dataset id -> list of ``((B, n_rows) bool, (B, nw)
+    int32)`` packed terms on the index's device.  Per op the semantics are
+    those of :func:`_attr_propagate_batch` (a single-entry seed reproduces
+    it term for term), over every op reachable from ANY entry.  Each live
+    (op, input, term) hop is one ``bitmatmul`` dispatch.
+
+    Returns ``(terms, B, hops)`` with ``collect_hops``, else ``(terms, B)``.
+    """
+    dev = index.device
+    terms: Dict[str, List[Term]] = {ds: list(ts) for ds, ts in entry_terms.items() if ts}
+    if not terms:
+        raise ValueError("attr_propagate_terms_batch needs at least one "
+                         "non-empty entry term list")
+    B = next(iter(terms.values()))[0][0].shape[0]
+    hops: List[List[Hop]] = [[] for _ in range(B)]
+    for op in _ops_from_entries(index, list(terms), direction):
+        out_ds = index.datasets[op.output_id]
+        if direction == "fwd":
+            for k, in_id in enumerate(op.input_ids):
+                in_ds = index.datasets[in_id]
+                plane = op.info.attr_maps[k].fwd_plane(in_ds.n_cols, out_ds.n_cols, dev)
+                for (rm, aw) in terms.get(in_id, []):
+                    if not bool(rm.any()):
+                        continue
+                    new_rm = op.tensor.forward_mask_batch(k, rm)
+                    new_aw = bitplane_or_reduce(aw, plane, in_ds.n_cols)
+                    if _any2(new_rm, new_aw):
+                        terms.setdefault(op.output_id, []).append((new_rm, new_aw))
+                        if collect_hops:
+                            _trace_terms(hops, op, in_id, op.output_id, new_rm, new_aw)
+        else:
+            for (rm, aw) in terms.get(op.output_id, []):
+                if not bool(rm.any()):
+                    continue
+                for k, in_id in enumerate(op.input_ids):
+                    in_ds = index.datasets[in_id]
+                    plane = op.info.attr_maps[k].bwd_plane(in_ds.n_cols, out_ds.n_cols, dev)
+                    new_rm = op.tensor.backward_mask_batch(k, rm)
+                    new_aw = bitplane_or_reduce(aw, plane, out_ds.n_cols)
+                    if _any2(new_rm, new_aw):
+                        terms.setdefault(in_id, []).append((new_rm, new_aw))
+                        if collect_hops:
+                            _trace_terms(hops, op, op.output_id, in_id, new_rm, new_aw)
+    if collect_hops:
+        return terms, B, hops
+    return terms, B
+
+
+def _attr_propagate_batch(
+    index: ProvenanceIndex, start: str, rows_batch, attrs_batch, direction: str,
+    collect_hops: bool = False,
+):
+    """Batched term propagation from one dataset: ``rows_batch`` is a probe
+    batch; ``attrs_batch`` a batch of attr sets or one set broadcast over
+    it.  A hop is recorded for probe b iff probe b's term survives the op
+    with non-empty row AND attr masks, as in :func:`_attr_propagate`."""
+    dev = index.device
+    ds0 = index.datasets[start]
+    rm0 = _as_mask_batch(rows_batch, ds0.n_rows, dev)
+    B = rm0.shape[0]
+    if is_probe_batch(attrs_batch):
+        am0 = _as_mask_batch(attrs_batch, ds0.n_cols, dev)
+    else:
+        am0 = _as_mask(attrs_batch, ds0.n_cols, dev)[None, :].expand(B, ds0.n_cols)
+    entry = {start: [(rm0, pack_bitplane(am0.contiguous()))]}
+    return attr_propagate_terms_batch(index, entry, direction, collect_hops=collect_hops)
+
+
+def _cells_batch(terms: List[Term], B: int, n_rows: int, n_cols: int,
+                 device) -> List[torch.Tensor]:
+    """Per probe, the union of its (rows x attrs) products -> a sorted
+    unique ``(n, 2)`` int64 cell list on ``device``, row-major as
+    ``np.argwhere`` gives it.
+
+    Built from the selected rows alone: each term's set (probe, row) pairs
+    take that probe's attr words, are unpacked to cells, and the cells of
+    all terms are merged by one sort of their int64 keys
+    ``(b * n_rows + row) * n_cols + col``; one host read splits them per
+    probe."""
+    keys = []
+    for rm, aw in terms:
+        bs, rs = torch.nonzero(rm, as_tuple=True)
+        p, cs = torch.nonzero(unpack_bitplane(aw[bs], n_cols), as_tuple=True)
+        keys.append((bs[p] * n_rows + rs[p]) * n_cols + cs)
+    if not keys:
+        empty = torch.zeros((0, 2), dtype=torch.int64, device=device)
+        return [empty] * B
+    key = torch.unique(torch.cat(keys))
+    per_probe, nc = max(n_rows * n_cols, 1), max(n_cols, 1)
+    rest = key % per_probe
+    cells = torch.stack([rest // nc, rest % nc], dim=1)
+    counts = torch.bincount(key // per_probe, minlength=B).tolist()
+    return list(torch.split(cells, counts))
+
+
+def _cells(terms: List[Term], n_rows: int, n_cols: int, device) -> torch.Tensor:
+    """Single-probe :func:`_cells_batch` over ``((n,) bool, (nw,) int32)`` terms."""
+    return _cells_batch([(rm[None, :], aw[None, :]) for rm, aw in terms],
+                        1, n_rows, n_cols, device)[0]
+
+
 # ---------------------------------------------------------------------------
 # Q10 helper: the default meeting dataset
 # ---------------------------------------------------------------------------
@@ -236,3 +529,174 @@ def _pick_via(index: ProvenanceIndex, d1: str, d2: str, fwd_masks, b=None) -> Op
         and index.path_exists(d2, d)
     ]
     return candidates[-1] if candidates else None
+
+
+# ---------------------------------------------------------------------------
+# Legacy Table-VII shims over repro_torch.provenance (deprecated spellings)
+# ---------------------------------------------------------------------------
+_DEPRECATION_WARNED: Set[str] = set()
+
+
+def _warn_deprecated(name: str, spelling: str) -> None:
+    if name in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(name)
+    warnings.warn(
+        f"repro_torch.core.query.{name} is deprecated; use "
+        f"repro_torch.provenance.prov(index){spelling}",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def _legacy_probe_is_batch(name: str, rows) -> bool:
+    """The old :func:`is_probe_batch` guess, with an
+    :class:`AmbiguousProbeWarning` on the spellings it cannot distinguish."""
+    from repro_torch.provenance.plan import AmbiguousProbeWarning
+
+    if isinstance(rows, (list, tuple)) and len(rows) == 0:
+        warnings.warn(
+            f"{name}: an empty probe [] is ambiguous (one empty probe set vs "
+            "an empty batch) and takes the single-probe path; spell it "
+            "prov(index)...rows([]) or .rows_batch([]) instead",
+            AmbiguousProbeWarning,
+            stacklevel=3,
+        )
+        return False
+    if isinstance(rows, (np.ndarray, torch.Tensor)) and rows.ndim == 1 \
+            and rows.dtype not in (bool, np.bool_, torch.bool):
+        warnings.warn(
+            f"{name}: a 1-D integer array probe is ambiguous (row indices "
+            "vs a length-1 batch) and takes the single-probe (row-index) "
+            "path; spell it prov(index)...rows(...) or .rows_batch(...) "
+            "instead",
+            AmbiguousProbeWarning,
+            stacklevel=3,
+        )
+        return False
+    return is_probe_batch(rows)
+
+
+def _record_shim(index, name, spelling, start, rows, target, direction, how):
+    from repro_torch.provenance import prov
+
+    _warn_deprecated(name, spelling)
+    qb = prov(index).source(start)
+    qb = qb.rows_batch(rows) if _legacy_probe_is_batch(name, rows) else qb.rows(rows)
+    qb = qb.forward() if direction == "fwd" else qb.backward()
+    if how:
+        qb = qb.how()
+    return qb.to(target).run()
+
+
+def _cells_shim(index, name, spelling, start, rows, attrs, target, direction, how):
+    from repro_torch.provenance import prov
+
+    _warn_deprecated(name, spelling)
+    qb = prov(index).source(start)
+    batched = _legacy_probe_is_batch(name, rows)
+    qb = qb.rows_batch(rows) if batched else qb.rows(rows)
+    if batched and is_probe_batch(attrs):
+        qb = qb.attrs_batch(attrs)
+    else:
+        qb = qb.attrs(attrs)
+    qb = qb.forward() if direction == "fwd" else qb.backward()
+    if how:
+        qb = qb.how()
+    return qb.to(target).run()
+
+
+def q1_forward(index: ProvenanceIndex, src: str, rows, dst: str):
+    """Q1: records in ``dst`` derived from ``rows`` of ``src``.  Deprecated
+    shim — ``prov(index).source(src).rows(...).forward().to(dst)``; a batch
+    of probe sets returns one index tensor per probe."""
+    return _record_shim(index, "q1_forward", ".source(src).rows(...).forward().to(dst)",
+                        src, rows, dst, "fwd", how=False)
+
+
+def q2_backward(index: ProvenanceIndex, dst: str, rows, src: str):
+    """Q2: records in ``src`` that contributed to ``rows`` of ``dst``.
+    Deprecated shim — ``prov(index).source(dst).rows(...).backward().to(src)``."""
+    return _record_shim(index, "q2_backward", ".source(dst).rows(...).backward().to(src)",
+                        dst, rows, src, "bwd", how=False)
+
+
+def q3_forward_attr(index, src: str, rows, attrs, dst: str):
+    """Q3: cells of ``dst`` derived from the given cells.  Deprecated shim —
+    ``prov(index).source(src).rows(...).attrs(...).forward().to(dst)``."""
+    return _cells_shim(index, "q3_forward_attr",
+                       ".source(src).rows(...).attrs(...).forward().to(dst)",
+                       src, rows, attrs, dst, "fwd", how=False)
+
+
+def q4_backward_attr(index, dst: str, rows, attrs, src: str):
+    """Q4: source cells the given ``dst`` cells derive from.  Deprecated shim
+    — ``prov(index).source(dst).rows(...).attrs(...).backward().to(src)``."""
+    return _cells_shim(index, "q4_backward_attr",
+                       ".source(dst).rows(...).attrs(...).backward().to(src)",
+                       dst, rows, attrs, src, "bwd", how=False)
+
+
+def q5_forward_how(index: ProvenanceIndex, src: str, rows, dst: str):
+    """Q5: Q1 plus the per-op :class:`Hop` trace.  Deprecated shim — Q1's
+    spelling + ``.how()``."""
+    return _record_shim(index, "q5_forward_how",
+                        ".source(src).rows(...).forward().to(dst).how()",
+                        src, rows, dst, "fwd", how=True)
+
+
+def q6_backward_how(index: ProvenanceIndex, dst: str, rows, src: str):
+    """Q6: Q2 plus the hop trace.  Deprecated shim — Q2's spelling + ``.how()``."""
+    return _record_shim(index, "q6_backward_how",
+                        ".source(dst).rows(...).backward().to(src).how()",
+                        dst, rows, src, "bwd", how=True)
+
+
+def q7_forward_attr_how(index, src: str, rows, attrs, dst: str):
+    """Q7: Q3 plus the hop trace.  Deprecated shim — Q3's spelling + ``.how()``."""
+    return _cells_shim(index, "q7_forward_attr_how",
+                       ".source(src).rows(...).attrs(...).forward().to(dst).how()",
+                       src, rows, attrs, dst, "fwd", how=True)
+
+
+def q8_backward_attr_how(index, dst: str, rows, attrs, src: str):
+    """Q8: Q4 plus the hop trace.  Deprecated shim — Q4's spelling + ``.how()``."""
+    return _cells_shim(index, "q8_backward_attr_how",
+                       ".source(dst).rows(...).attrs(...).backward().to(src).how()",
+                       dst, rows, attrs, src, "bwd", how=True)
+
+
+def q9_all_transformations(index: ProvenanceIndex, dataset: str) -> List[Dict]:
+    """Deprecated shim — ``prov(index).source(dataset).transformations()``."""
+    from repro_torch.provenance import prov
+
+    _warn_deprecated("q9_all_transformations", ".source(dataset).transformations()")
+    return prov(index).source(dataset).transformations().run()
+
+
+def q10_co_contributory(index: ProvenanceIndex, d1: str, rows, d2: str,
+                        via: Optional[str] = None):
+    """Records of ``d2`` used together with ``rows`` of ``d1`` to create new
+    records (in ``via``; defaults to any common descendant).  Deprecated
+    shim — ``prov(index).source(d1).rows(...).co_contributory(d2, via=via)``."""
+    from repro_torch.provenance import prov
+
+    _warn_deprecated("q10_co_contributory",
+                     ".source(d1).rows(...).co_contributory(d2, via=via)")
+    qb = prov(index).source(d1)
+    qb = (qb.rows_batch(rows)
+          if _legacy_probe_is_batch("q10_co_contributory", rows) else qb.rows(rows))
+    return qb.co_contributory(d2, via=via).run()
+
+
+def q11_co_dependency(index: ProvenanceIndex, d2: str, rows, d1: str, d3: str):
+    """Records of ``d3`` lineage-dependent on the ``d1`` records that
+    generated ``rows`` of ``d2``.  Deprecated shim —
+    ``prov(index).source(d2).rows(...).co_dependency(d1, d3)``."""
+    from repro_torch.provenance import prov
+
+    _warn_deprecated("q11_co_dependency", ".source(d2).rows(...).co_dependency(d1, d3)")
+    qb = prov(index).source(d2)
+    qb = (qb.rows_batch(rows)
+          if _legacy_probe_is_batch("q11_co_dependency", rows) else qb.rows(rows))
+    return qb.co_dependency(d1, d3).run()

@@ -1,8 +1,10 @@
-"""Prospective schema metadata: attribute bitsets (paper Table VI).
+"""Prospective schema metadata: bitsets + attribute-mapping functions.
 
-A bitset costs one 32-bit word per 32 attributes; :func:`rank_positions`
-realizes the rank-based attribute maps of Section IV for every position at
-once.
+Implements the paper's Table VI annotations and the forward/backward
+attribute maps of Section IV.  A bitset costs one 32-bit word per 32
+attributes; :func:`rank_positions` realizes the rank-based maps for every
+position at once, the scalar maps (``map_*``, ``perm_*``) answer one
+position each.
 
 Attribute bitsets hold at most a few hundred bits, so they stay on the host
 as CPU tensors whatever the index's device: moving them to the card would
@@ -12,13 +14,24 @@ cost a launch per map and save nothing.  Words are int32 (see
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch.kernels.ref import pack_bits, popcount32, unpack_bits
 
-__all__ = ["Bitset", "rank_positions"]
+__all__ = [
+    "Bitset",
+    "map_vr_f",
+    "map_vr_b",
+    "map_va_f",
+    "map_va_b",
+    "map_join_f",
+    "map_join_b",
+    "perm_forward",
+    "perm_backward",
+    "rank_positions",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +103,66 @@ def rank_positions(b: Bitset) -> torch.Tensor:
     ranks = torch.cumsum(bits.to(torch.int64), dim=0) - 1
     return torch.where(bits, ranks, torch.full_like(ranks, -1)).to(torch.int32)
 
+
+# ---------------------------------------------------------------------------
+# Attribute maps (paper §IV).  All positions are 0-based here; the paper is
+# 1-based — rank() compensates.
+# ---------------------------------------------------------------------------
+def map_vr_f(b: Bitset, i: int) -> Optional[int]:
+    """Vertical reduction, forward: input attr i -> output attr or None."""
+    if not b.test(i):
+        return None
+    return b.rank(i) - 1  # 0-based position among kept attributes
+
+
+def map_vr_b(b: Bitset, i: int) -> int:
+    """Vertical reduction, backward: output attr i -> input attr j with
+    rank(j) == i+1 and b_j = 1 (the paper's select)."""
+    j = b.select(i + 1)
+    if j is None:
+        raise IndexError(f"output attribute {i} out of range for bitset {b}")
+    return j
+
+
+def map_va_f(m: int, i: int) -> int:
+    """Vertical augmentation, forward: identity (all input attrs preserved)."""
+    if i >= m:
+        raise IndexError(f"input attribute {i} >= m={m}")
+    return i
+
+
+def map_va_b(b: Bitset, m: int, i: int) -> List[int]:
+    """Vertical augmentation, backward: output attr i -> source input attrs.
+    i < m: same position.  i >= m: the set-bit positions of b within [0, m)
+    (the input attrs used to engineer the new features)."""
+    if i < m:
+        return [i]
+    return [int(j) for j in b.indices().tolist() if j < m]
+
+
+def map_join_f(b: Bitset, i: int) -> Optional[int]:
+    """Join, forward: input attr i (0-based within this input dataset) ->
+    output attr position j with rank(j) == i+1, b_j = 1."""
+    return b.select(i + 1)
+
+
+def map_join_b(b: Bitset, i: int) -> Optional[int]:
+    """Join, backward: output attr i -> attr position within this input
+    dataset, or None if attr i does not originate from it."""
+    if i >= b.n or not b.test(i):
+        return None
+    return b.rank(i) - 1
+
+
+# ---------------------------------------------------------------------------
+# Order-changing vertical reduction (paper: "a list of integers can be used
+# instead of a bitset") — a permutation list [4,2,5] style annotation.
+# ---------------------------------------------------------------------------
+def perm_forward(perm, i: int) -> Optional[int]:
+    """perm[j] = input attr that landed at output position j."""
+    hits = torch.nonzero(torch.as_tensor(perm).reshape(-1) == i).reshape(-1)
+    return int(hits[0]) if len(hits) else None
+
+
+def perm_backward(perm, j: int) -> int:
+    return int(torch.as_tensor(perm).reshape(-1)[j])

@@ -7,10 +7,12 @@
   the fused K-hop kernel and fuses ``run_many`` batches that share
   endpoints into one pass.
 
-Federation, impact analysis and sharding are later slices (ROADMAP A8-A10).
+The legacy Table-VII free functions (``repro_torch.core.query.q1_forward``
+...) are thin deprecation shims over this package.  Federation, impact
+analysis and sharding are later slices (ROADMAP A8-A10).
 """
 from repro_torch.provenance.builder import ProvQuery, prov
-from repro_torch.provenance.plan import QueryPlan
+from repro_torch.provenance.plan import AmbiguousProbeWarning, QueryPlan
 from repro_torch.provenance.session import QuerySession
 
 __all__ = [
@@ -18,4 +20,5 @@ __all__ = [
     "ProvQuery",
     "QueryPlan",
     "QuerySession",
+    "AmbiguousProbeWarning",
 ]

@@ -9,7 +9,8 @@ from ``.plan()`` is handed to a
 
     prov(index).source("D_l").rows([0, 3]).forward().to(sink).run()      # Q1
     prov(index).source(sink).rows([0]).backward().to("D_l").run()        # Q2
-    ... .how()                                                           # Q5/Q6
+    prov(index).source("D_l").rows([0]).attrs([1]).forward().to(sink)    # Q3
+    ... .how()                                                           # Q5-Q8
     prov(index).source(sink).transformations().run()                     # Q9
     prov(index).source("D_l").rows([0]).co_contributory("D_r").run()     # Q10
     prov(index).source(mid).rows([0]).co_dependency("D_l", sink).run()   # Q11
@@ -27,6 +28,11 @@ import torch
 from repro_torch.provenance.plan import QueryPlan
 
 __all__ = ["prov", "ProvQuery"]
+
+
+def _unknown_dataset(holder, dataset_id: str) -> KeyError:
+    """The error for a dataset ref ``holder`` does not know."""
+    return KeyError(f"unknown dataset {dataset_id!r} in {getattr(holder, 'name', holder)!r}")
 
 
 def _single_mask(rows, n: int, what: str, device) -> torch.Tensor:
@@ -105,7 +111,7 @@ class ProvQuery:
 
     def _known(self, dataset_id: str) -> str:
         if dataset_id not in self._index.datasets:
-            raise KeyError(f"unknown dataset {dataset_id!r}")
+            raise _unknown_dataset(self._index, dataset_id)
         return dataset_id
 
     # -- probe anchoring ------------------------------------------------------
@@ -151,7 +157,7 @@ class ProvQuery:
         return self
 
     def how(self) -> "ProvQuery":
-        """Also collect the per-op :class:`Hop` trace (Q5/Q6)."""
+        """Also collect the per-op :class:`Hop` trace (Q5-Q8)."""
         self._how = True
         return self
 

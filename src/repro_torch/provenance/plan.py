@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["QueryPlan", "PLAN_KINDS"]
+__all__ = ["QueryPlan", "AmbiguousProbeWarning", "PLAN_KINDS"]
 
 PLAN_KINDS = (
     "record",
@@ -39,6 +39,16 @@ PLAN_KINDS = (
     "co_contributory",
     "co_dependency",
 )
+
+
+class AmbiguousProbeWarning(UserWarning):
+    """A probe spelling whose single-vs-batch reading is ambiguous.
+
+    The legacy free functions (``q1_forward`` ...) guess: an empty list and
+    a 1-D integer array take the single-probe path while a list of sets
+    takes the batch path.  The builder's ``.rows(...)`` /
+    ``.rows_batch(...)`` never guess; the legacy shims emit this warning
+    whenever they have to."""
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,6 +105,15 @@ class QueryPlan:
     @property
     def n_probes(self) -> int:
         return 0 if self.rows is None else int(self.rows.shape[0])
+
+    def refs(self) -> Tuple[str, ...]:
+        """Every dataset ref the plan touches (source, target, via, anchor).
+        Refs are opaque strings to the IR; the executing session owns their
+        interpretation."""
+        return tuple(
+            r for r in (self.source, self.target, self.via, self.anchor)
+            if r is not None
+        )
 
     def describe(self) -> str:
         """Compact human-readable spelling (logs / EXPLAIN output)."""

@@ -3,7 +3,8 @@
 A session owns the physical machinery for one :class:`ProvenanceIndex`:
 
 * the **per-op walk** (:mod:`repro_torch.core.query`), with the fused K-hop
-  kernel for linear chains;
+  kernel for linear chains, and the attribute-level term walk (packed
+  attribute words contracted per hop by ``bitmatmul``);
 * the **composed hop-cache** (:class:`repro_torch.core.hopcache.ComposedIndex`,
   shared with every other session on the index via
   ``ProvenanceIndex.composed()``), whose relations sum over all producer
@@ -15,12 +16,14 @@ and picks between them per :class:`QueryPlan`:
 plan shape            strategy
 ====================  ====================================================
 ``transformations``   ``meta``: a metadata scan, no tensor touched (Q9)
-``how``               ``walk``: hop traces live on the per-op pass (Q5/Q6)
+``cells`` / ``how``   ``walk``: attribute planes and hop traces live on the
+                      per-op pass (Q3/Q4, Q5-Q8)
 record-level          ``hopcache``: a composed-relation probe when the
-(Q1/Q2, Q10/Q11)      relation is already cached, or when the cost model
-                      estimates amortized compose-then-probe under the
-                      walk; ``walk`` otherwise, where a linear chain goes
-                      to the fused K-hop kernel when ``fused_walk`` is on
+(Q1/Q2, Q10/Q11)      relation is already cached (resident or spilled), or
+                      when the cost model estimates amortized
+                      compose-then-probe under the walk; ``walk``
+                      otherwise, where a linear chain goes to the fused
+                      K-hop kernel when ``fused_walk`` is on
 ====================  ====================================================
 
 Record-level routing is driven by :class:`repro_torch.core.costmodel.CostModel`
@@ -30,8 +33,9 @@ demand seen for the pair.  The legacy ``hopcache_min_batch`` batch-size
 heuristic is DEPRECATED but still honored when passed explicitly (with a
 ``DeprecationWarning``).  ``use_hopcache=True`` is the default, as in
 ``repro``; ``fused_walk=None`` resolves to True iff the index lies on a
-CUDA device.  Attribute-level ``cells`` plans (Q3/Q4/Q7/Q8) raise
-``NotImplementedError`` (ROADMAP A5b).
+CUDA device.  :meth:`QuerySession.run_record_terms` and
+:meth:`QuerySession.run_attr_terms` walk from several seed datasets at once
+(the federation's segment hooks).
 
 ``run_many`` **fuses** submitted plans that share a fuse key into ONE
 pass: the probe mask stacks concatenate along the batch axis, a single
@@ -152,11 +156,10 @@ class QuerySession:
     def _strategy(self, plan: QueryPlan, note: bool = True) -> str:
         if plan.kind == "transformations":
             return "meta"
-        if plan.kind == "cells":
-            raise NotImplementedError(
-                "attribute-level (cells) plans are not ported yet (ROADMAP A5b)")
-        if plan.how or not self.use_hopcache:
-            return "walk"  # hop traces live on the walk
+        if plan.kind == "cells" or plan.how:
+            return "walk"  # attr planes / hop traces live on the walk
+        if not self.use_hopcache:
+            return "walk"
         pairs = self._plan_pairs(plan)
         if pairs is None:
             return "walk"
@@ -201,8 +204,8 @@ class QuerySession:
     # -- execution -------------------------------------------------------------
     def run(self, plan: QueryPlan):
         """Execute one plan.  Single-probe plans return one result (an int64
-        index tensor, or ``(records, hops)``); batched plans return one such
-        result per probe."""
+        index tensor, an ``(n, 2)`` int64 cell list, or ``(result, hops)``);
+        batched plans return one such result per probe."""
         self.counters["plans"] += 1
         if plan.kind == "transformations":
             self.counters["meta"] += 1
@@ -258,12 +261,41 @@ class QuerySession:
         self.counters[strategy] += 1
         return self._record_masks(plan, strategy)
 
+    def run_record_terms(self, entry_masks: Dict[str, torch.Tensor],
+                         direction: str, collect_hops: bool = False):
+        """Record propagation from MULTIPLE seed datasets in one pass.
+
+        ``entry_masks`` maps dataset id -> ``(B, n_rows)`` bool probe stacks;
+        the return is the full reachable ``{dataset: (B, n) bool}`` dict
+        (plus per-probe :class:`~repro_torch.core.query.Hop` traces with
+        ``collect_hops``).  Always walks (hop traces live on the per-op
+        pass)."""
+        self.counters["plans"] += 1
+        self.counters["walk"] += 1
+        return Q.record_masks_terms_batch(self.index, entry_masks, direction,
+                                          collect_hops=collect_hops)
+
+    def run_attr_terms(self, entry_terms, direction: str, collect_hops: bool = False):
+        """Attr-term propagation from MULTIPLE seed datasets in one pass.
+
+        ``entry_terms`` maps dataset id -> lists of ``((B, n_rows) bool,
+        (B, nw) int32)`` packed terms; the return is the full reachable
+        terms dict plus per-probe hop traces (``(terms, B, hops)`` with
+        ``collect_hops``, else ``(terms, B)``).  Never routes through the
+        hop-cache."""
+        self.counters["plans"] += 1
+        self.counters["walk"] += 1
+        return Q.attr_propagate_terms_batch(self.index, entry_terms, direction,
+                                            collect_hops=collect_hops)
+
     # -- executors (each returns one payload per probe) -------------------------
     def _execute(self, plan: QueryPlan) -> List:
         strategy = self._strategy(plan)
         self.counters[strategy] += 1
         if plan.kind == "record":
             return self._exec_record(plan, strategy)
+        if plan.kind == "cells":
+            return self._exec_cells(plan)
         if plan.kind == "co_contributory":
             return self._exec_co_contributory(plan, strategy)
         if plan.kind == "co_dependency":
@@ -300,6 +332,17 @@ class QuerySession:
         masks, hops = walker(self.index, plan.source, plan.rows, collect_hops=True)
         out = masks.get(plan.target, self._empty(plan))
         return list(zip(_flatnonzeros(out), hops))
+
+    def _exec_cells(self, plan: QueryPlan) -> List:
+        ds = self.index.datasets[plan.target]
+        out = Q._attr_propagate_batch(self.index, plan.source, plan.rows, plan.attrs,
+                                      plan.direction, collect_hops=plan.how)
+        terms = out[0]
+        cells = Q._cells_batch(terms.get(plan.target, []), plan.n_probes, ds.n_rows,
+                               ds.n_cols, self.index.device)
+        if plan.how:
+            return list(zip(cells, out[2]))
+        return cells
 
     def _exec_co_contributory(self, plan: QueryPlan, strategy: str) -> List:
         d1, d2, via = plan.source, plan.target, plan.via

@@ -261,7 +261,11 @@ def test_index_from_numpy_answers_like_port_capture():
                 for d, r in r_idx.datasets.items()]
     ops = [{"op_name": op.info.op_name, "category": op.info.category.value,
             "contextual": op.info.contextual, "input_ids": op.input_ids,
-            "output_id": op.output_id, "payload": op.tensor.to_payload()}
+            "output_id": op.output_id, "payload": op.tensor.to_payload(),
+            "attr_maps": [{"kind": a.kind,
+                           "bitset": None if a.bitset is None
+                           else {"n": a.bitset.n, "words": a.bitset.words},
+                           "m": a.m, "perm": a.perm} for a in op.info.attr_maps]}
            for op in r_idx.ops]
     carried = index_from_numpy(datasets, ops, device=CPU)
     assert carried.device == torch.device("cpu") and len(carried.ops) == len(t_idx.ops)
@@ -287,9 +291,25 @@ def test_index_from_numpy_rejects_inconsistent_rows():
     ops = [{"op_name": "filter", "category": "horizontal_reduction", "contextual": False,
             "input_ids": ["a"], "output_id": "b",
             "payload": ({"n_out": 2, "n_in": [4], "slots": [{"kind": "gather"}]},
-                        {"slot0": np.array([0, 2], np.int32)})}]
+                        {"slot0": np.array([0, 2], np.int32)}),
+            "attr_maps": [{"kind": "identity", "bitset": None, "m": None, "perm": None}]}]
     with pytest.raises(ValueError, match="rows"):
         index_from_numpy(datasets, ops, device=CPU)
+
+
+def test_index_from_numpy_requires_attr_maps():
+    """An op record without ``attr_maps`` is refused by name, not carried as
+    an op that a cells query cannot read."""
+    datasets = [{"id": "a", "n_rows": 3, "n_cols": 1, "columns": ["x"]},
+                {"id": "b", "n_rows": 2, "n_cols": 1, "columns": ["x"]}]
+    ops = [{"op_name": "filter", "category": "horizontal_reduction", "contextual": False,
+            "input_ids": ["a"], "output_id": "b",
+            "payload": ({"n_out": 2, "n_in": [3], "slots": [{"kind": "gather"}]},
+                        {"slot0": np.array([0, 2], np.int32)})}]
+    with pytest.raises(ValueError, match="filter: the op record has no attr_maps"):
+        index_from_numpy(datasets, ops, device=CPU)
+    ops[0]["attr_maps"] = [{"kind": "identity", "bitset": None, "m": None, "perm": None}]
+    assert len(index_from_numpy(datasets, ops, device=CPU).ops) == 1
 
 
 def test_index_rejects_tables_on_another_device():
@@ -297,8 +317,12 @@ def test_index_rejects_tables_on_another_device():
     t = Table.from_columns({"a": np.zeros(3, np.float32)}, device="meta")
     with pytest.raises(ValueError, match="lies on"):
         track(t, idx)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ProvenanceIndex("y", device=CPU, spill=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ProvenanceIndex("z", device=CPU).composed(spill=True)
+    # spill=True gives the index and its hop-cache a spill tier (private
+    # temp stores) and their stats() report it
+    spilled = ProvenanceIndex("y", device=CPU, spill=True)
+    sp = spilled.stats()["spill"]
+    assert sp["spills"] == 0 and sp["resident_ops"] == 0 and sp["store"]["entries"] == 0
+    ci = ProvenanceIndex("z", device=CPU).composed(spill=True)
+    assert ci.stats()["spills"] == 0 and ci.stats()["spill"]["writes"] == 0
+    assert "spill" not in idx.stats()
     assert idx.composed() is idx.composed() and idx.composed().device == idx.device

@@ -180,7 +180,11 @@ def test_carried_index_composes_like_reference():
                 for d, r in r_idx.datasets.items()]
     ops = [{"op_name": op.info.op_name, "category": op.info.category.value,
             "contextual": op.info.contextual, "input_ids": op.input_ids,
-            "output_id": op.output_id, "payload": op.tensor.to_payload()}
+            "output_id": op.output_id, "payload": op.tensor.to_payload(),
+            "attr_maps": [{"kind": a.kind,
+                           "bitset": None if a.bitset is None
+                           else {"n": a.bitset.n, "words": a.bitset.words},
+                           "m": a.m, "perm": a.perm} for a in op.info.attr_maps]}
            for op in r_idx.ops]
     carried = index_from_numpy(datasets, ops, device="cpu")
     for backend in BACKENDS:
@@ -193,8 +197,10 @@ def test_backend_default_is_auto_and_spill_raises():
     assert t_idx.composed() is t_idx.composed()
     with pytest.raises(ValueError):
         t_idx.composed(memory_budget_bytes=1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ComposedIndex(t_idx, spill=True)
+    spilled = ComposedIndex(t_idx, spill=True)
+    st = spilled.stats()
+    assert (st["spills"], st["rehydrations"], st["spilled_entries"]) == (0, 0, 0)
+    assert st["spill"]["entries"] == 0 and "spill" not in ComposedIndex(t_idx).stats()
     with pytest.raises(ValueError):
         ComposedIndex(t_idx, backend="dense")
 

@@ -40,6 +40,32 @@ def _env():
     return env
 
 
+_FIRST = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+bad = []
+for name in names:
+    for k in [k for k in sys.modules if k == "repro_torch" or k.startswith("repro_torch.")]:
+        del sys.modules[k]
+    try:
+        importlib.import_module(name)
+    except ImportError as e:
+        bad.append(f"{name}: {e}")
+print("BAD", bad)
+"""
+
+
+def test_every_module_imports_first():
+    """Any module of the port can be the first one a program imports: no
+    import cycle depends on the order (``dataprep.table`` needs
+    ``core.device``, whose package must not import ``core.pipeline``,
+    which imports the table back)."""
+    out = subprocess.run([sys.executable, "-c", _FIRST], capture_output=True, text=True,
+                         env=_env(), timeout=300, check=True)
+    assert out.stdout.strip() == "BAD []", out.stdout
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=_env(), timeout=300, check=True)

@@ -208,14 +208,23 @@ def test_run_many_fuses_and_keeps_submission_order():
 
 
 def test_unported_strategies_raise():
-    """Cells plans (attribute level) and the hop-cache's spill tier raise;
-    the hop-cache route is the default."""
+    """Cells plans (attribute level) route to the walk and a session over a
+    spilled hop-cache answers like the default one; boundary handles
+    (federation) still raise, naming their ROADMAP item.  The hop-cache
+    route is the default."""
     t_idx, sink = _diamond(3)
     assert QuerySession(t_idx).use_hopcache is True
-    with pytest.raises(NotImplementedError, match="A5b"):
-        prov(t_idx).source("src").rows([0]).attrs([0]).forward().to(sink).run()
-    with pytest.raises(NotImplementedError, match="A7"):
-        QuerySession(t_idx, TComposed(t_idx, spill=True))
+    session = QuerySession(t_idx)
+    cells = prov(t_idx).source("src").rows([0]).attrs([0]).forward().to(sink).run(session)
+    assert cells.dtype == torch.int64 and cells.shape[1] == 2 and cells.shape[0] > 0
+    assert session.counters["walk"] == 1 and session.counters["hopcache"] == 0
+    spilled = QuerySession(t_idx, TComposed(t_idx, memory_budget_bytes=0, spill=True))
+    n = t_idx.datasets[sink].n_rows
+    probe = prov(t_idx).source(sink).rows_batch([[0], [n - 1]]).backward().to("src")
+    for got, want in zip(probe.run(spilled), probe.run(QuerySession(t_idx))):
+        assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="A8"):
+        t_idx.export(sink)
 
 
 def test_builder_validates_probes():
