@@ -56,7 +56,23 @@ PyTorch built for CUDA.  It
    unspilled index's, and the capture leaves less device memory allocated
    (``memory_allocated`` and the allocator's requested bytes) by at least
    the spilled payload; spill stores live under the ignored
-   ``build/spill_smoke/`` and are removed after each check;
+   ``build/spill_smoke/`` and are removed after each check; then
+   (``federation``) Compas and Census captured again split after their
+   second op into a ``prep`` and a ``serve`` index joined by an identity
+   link, the TPC-DI SF20 join split from its filter, and a 100,000-row
+   diamond whose two branches cross on two links: Q1/Q2 (B = 64), Q3/Q4
+   and Q6/Q7 through ``prov(catalog)`` as member segments (Compas's
+   members on the fused walk, Census's on warm bitplane hop-caches) equal
+   the merged index's answers, and on Compas the CPU run's answers and
+   launch counts; one hot route per catalog flips to its stitched relation
+   under the default cost gate and answers as the segments did, which a
+   zero byte budget never stitches; then (``impact``) ``erasure_plan`` over
+   a 9-op chain of 50,000 rows equals the union of per-row queries, a
+   federated erasure on split Census equals the merged index's plan and
+   ``apply_invalidations`` drops its stitched relation and spilled
+   hop-cache payload once, and ``whatif_replay`` of 8 rows over a
+   100,000-row pipeline equals the full re-run (rtol = atol = 1e-5) and
+   leaves the recorded tables bit-identical;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -289,11 +305,16 @@ def device_bytes(device) -> tuple:
 
 def capture_delta(make, device, spill=None):
     """Capture one configuration into a fresh index: (index, source, sink,
-    the capture's ``device_bytes`` delta)."""
+    the capture's ``device_bytes`` delta).  The allocator's unused cached
+    blocks are released first, so that two captures measured one after the
+    other (the first one freed in between) start from the same allocator
+    state: ``memory_allocated`` counts a block at its size, and a request
+    served from another cached block would round differently."""
     import gc
 
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     before = device_bytes(device)
     idx, src, sink = make(device, spill)
     gc.collect()
@@ -301,6 +322,208 @@ def capture_delta(make, device, spill=None):
     after = device_bytes(device)
     return idx, src, sink, (after[0] - before[0], after[1] - before[1])
 
+
+
+# -- federation and impact (phases 7e and 7f) ----------------------------------
+def split_usecase(name, cut, device):
+    """Capture use case ``name`` split across a federation: ``prep`` owns
+    its ops [0, cut), ``serve`` the rest over a source holding the boundary
+    table, glued by an identity link.  Returns (catalog, source ref, sink
+    ref, every dataset ref in op order)."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.dataprep.tracked import track
+    from repro_torch.provenance import ProvCatalog
+    from repro_torch.provenance.catalog import qualify
+
+    prep = ProvenanceIndex(f"{name}_prep", device=device)
+    serve = ProvenanceIndex(f"{name}_serve", device=device)
+    d = track(U.USECASES[name][0](device=device), prep, f"{name}_src")
+    refs = [qualify("prep", d.dataset_id)]
+    for step in U.STEPS[name][:cut]:
+        d = step(d)
+        refs.append(qualify("prep", d.dataset_id))
+    s = track(d.table, serve, "ingest")
+    for step in U.STEPS[name][cut:]:
+        s = step(s)
+        refs.append(qualify("serve", s.dataset_id))
+    s.mark_sink()
+    cat = ProvCatalog(name, device=device)
+    cat.register("prep", prep).register("serve", serve)
+    cat.link(refs[cut], "serve/ingest")
+    return cat, refs[0], refs[-1], refs
+
+
+def split_join(scale, device):
+    """The TPC-DI join + filter split between the join (prep) and the
+    filter (serve)."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.dataprep.tracked import track
+    from repro_torch.provenance import ProvCatalog
+    from repro_torch.provenance.catalog import qualify
+
+    prep = ProvenanceIndex(f"tpcdi{scale}_prep", device=device)
+    serve = ProvenanceIndex(f"tpcdi{scale}_serve", device=device)
+    left, right = U.make_tpcdi_join_inputs(scale, device=device)
+    j = track(left, prep, "trade").join(track(right, prep, "security"), on="key", how="inner")
+    s = track(j.table, serve, "ingest")
+    f = s.filter_rows(s.table.col("l0") > 0.0).mark_sink()
+    cat = ProvCatalog(f"tpcdi{scale}", device=device)
+    cat.register("prep", prep).register("serve", serve)
+    cat.link(qualify("prep", j.dataset_id), "serve/ingest")
+    return cat, "prep/trade", qualify("serve", f.dataset_id), [
+        "prep/trade", qualify("prep", j.dataset_id), qualify("serve", f.dataset_id)]
+
+
+def diamond_worlds(n, device, seed=0):
+    """``tests/pipegen.py::cross_boundary_diamond`` at ``n`` rows: a merged
+    index, and the same ops split so that TWO links carry the two branches
+    of one source into the serve side's join.  Returns (merged index,
+    source, sink, catalog, source ref, sink ref)."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep.table import Table
+    from repro_torch.dataprep.tracked import track
+    from repro_torch.provenance import ProvCatalog
+    from repro_torch.provenance.catalog import qualify
+
+    rng = np.random.default_rng(seed)
+    base = {"k": np.arange(n, dtype=np.float32), "x": rng.normal(size=n).astype(np.float32)}
+    keep = torch.as_tensor(rng.random(n) < 0.75, device=device)
+    merged = ProvenanceIndex("diamond", device=device)
+    s = track(Table.from_columns(base, device=device), merged, "src")
+    j = s.filter_rows(keep).join(s.value_transform("x", "scale", factor=2.0), on="k",
+                                 how="inner").mark_sink()
+    prep = ProvenanceIndex("diamond_prep", device=device)
+    serve = ProvenanceIndex("diamond_serve", device=device)
+    ps = track(Table.from_columns(base, device=device), prep, "src")
+    pa, pb = ps.filter_rows(keep), ps.value_transform("x", "scale", factor=2.0)
+    sj = track(pa.table, serve, "branch_a").join(track(pb.table, serve, "branch_b"), on="k",
+                                                  how="inner").mark_sink()
+    cat = ProvCatalog("diamond", device=device)
+    cat.register("prep", prep).register("serve", serve)
+    cat.link(qualify("prep", pa.dataset_id), "serve/branch_a")
+    cat.link(qualify("prep", pb.dataset_id), "serve/branch_b")
+    return merged, "src", j.dataset_id, cat, "prep/src", qualify("serve", sj.dataset_id)
+
+
+def lineage_queries(holder, src, sink, q, how: bool, session=None):
+    """Q1/Q2 (B probes of rows), Q3/Q4 (cells) and, with ``how``, Q6
+    (record how, backward) and Q7 (cells how, forward) on the first 8
+    probes, over an index or a catalog."""
+    from repro_torch.provenance import prov
+
+    out = {
+        "q1": prov(holder).source(src).rows_batch(q["q1"]).forward().to(sink).run(session),
+        "q2": prov(holder).source(sink).rows_batch(q["q2"]).backward().to(src).run(session),
+        "q3": prov(holder).source(src).rows_batch(q["q1"]).attrs_batch(q["a_src"])
+        .forward().to(sink).run(session),
+        "q4": prov(holder).source(sink).rows_batch(q["q2"]).attrs_batch(q["a_sink"])
+        .backward().to(src).run(session),
+    }
+    if how:
+        out["q6"] = prov(holder).source(sink).rows_batch(q["q2"][:8]).backward().to(src) \
+            .how().run(session)
+        out["q7"] = prov(holder).source(src).rows_batch(q["q1"][:8]).attrs_batch(q["a_src"][:8]) \
+            .forward().to(sink).how().run(session)
+    return out
+
+
+def same_lineage(got, want, what: str) -> int:
+    """Records, cells and hop traces of two runs agree; hops are compared
+    by (op, category, records) with the federation's link hops left out.
+    Returns the number of link hops ``got`` holds."""
+    check(sorted(got) == sorted(want), f"{what}: query sets differ")
+    links = 0
+    for key in got:
+        check(len(got[key]) == len(want[key]), f"{what} {key}: batch size")
+        for g, w in zip(got[key], want[key]):
+            if isinstance(g, tuple):
+                (g, gh), (w, wh) = g, w
+                links += sum(h.category == "link" for h in gh)
+                check([(h.op_name, h.category, h.n_records) for h in gh if h.category != "link"]
+                      == [(h.op_name, h.category, h.n_records) for h in wh
+                          if h.category != "link"], f"{what} {key}: hop traces differ")
+            check(torch.equal(g.cpu(), w.cpu()), f"{what} {key}: answers differ")
+    return links
+
+
+def build_whatif(src_cols, dims_cols, device, name):
+    """``benchmarks/bench_impact.py::_build_whatif`` in the port: filter
+    masks from a fixed rng (never from data), jitter seeds stored, so a
+    re-run over a patched source is comparable to the replay."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep.table import Table
+    from repro_torch.dataprep.tracked import track
+
+    rng = np.random.default_rng(7)
+    idx = ProvenanceIndex(name, device=device)
+    t = track(Table.from_columns(src_cols, device=device), idx, "src")
+    dims = track(Table.from_columns(dims_cols, device=device), idx)
+    t = t.value_transform("x", "scale", factor=1e-2)
+    t = t.filter_rows(torch.as_tensor(rng.random(t.table.n_rows) > 0.03, device=device))
+    t = t.join(dims, on="k", how="inner")
+    t = t.value_transform("w", "scale", factor=2.0)
+    t = t.oversample(frac=0.02, seed=5, noise=0.1)
+    for i in range(5):
+        t = t.value_transform("y", "scale", factor=1.0 + 0.1 * i)
+    t = t.filter_rows(torch.as_tensor(rng.random(t.table.n_rows) > 0.02, device=device))
+    t = t.value_transform("x", "clip", lo=-1e6, hi=1e6)
+    t.mark_sink()
+    return idx, t.dataset_id
+
+
+def erasure_chain(n, hops, device, seed=0):
+    """``benchmarks/bench_impact.py::_chain`` in the port: scale, filter and
+    oversample ops in turn over one source."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep.table import Table
+    from repro_torch.dataprep.tracked import track
+
+    rng = np.random.default_rng(seed)
+    idx = ProvenanceIndex("chain", device=device)
+    t = track(Table.from_columns({"k": np.arange(n, dtype=np.float32),
+                                  "x": rng.normal(size=n).astype(np.float32)}, device=device),
+              idx, "src")
+    for i in range(hops):
+        if i % 3 == 0:
+            t = t.value_transform("x", "scale", factor=1.0 + i)
+        elif i % 3 == 1:
+            t = t.filter_rows(torch.as_tensor(rng.random(t.table.n_rows) > 0.05, device=device))
+        else:
+            t = t.oversample(frac=0.04, seed=i, noise=0.0)
+    t.mark_sink()
+    return idx, t.dataset_id
+
+
+def federation_run(cat, src, sink, q, members: str, how: bool):
+    """One catalog's federated run through member SEGMENTS (a session whose
+    stitched-relation budget is 0, so the cost gate never stitches): member
+    sessions configured as ``members`` says ("fused_walk": the walk with
+    the fused kernel; "bitplane": warm bitplane hop-caches; "default").
+    Launch counts are zeroed just before and read just after.  Returns
+    (answers, launch counts, the session)."""
+    from repro_torch.kernels import ops
+    from repro_torch.provenance import FederatedSession
+    from repro_torch.provenance.catalog import split_ref
+
+    idx = {name: m._index for name, m in cat.members.items()}
+    if members == "fused_walk":
+        for i in idx.values():
+            i.session(use_hopcache=False, fused_walk=True)
+    elif members == "bitplane":
+        for i in idx.values():
+            i.composed(memory_budget_bytes=2 << 30, backend="bitplane")
+    seg = FederatedSession(cat, cross_budget_bytes=0)
+    ops.reset_launch_counts()
+    if members == "bitplane":
+        link = cat.links[0]
+        idx["prep"].composed().relation(split_ref(src)[1], split_ref(link.up)[1])
+        idx["serve"].composed().relation(split_ref(link.down)[1], split_ref(sink)[1])
+    got = lineage_queries(cat, src, sink, q, how, seg)
+    if cat.device.type == "cuda":
+        torch.cuda.synchronize()
+    return got, ops.launch_counts(), seg
 
 
 def main() -> int:
@@ -1122,7 +1345,12 @@ def main() -> int:
         prov_bytes = plain.prov_nbytes()
         budget = max(prov_bytes // 4, 1)
         policy = SpillPolicy(path=str(fresh_store(f"tensors_{name}")), budget_bytes=budget)
+        # the measured unspilled capture is freed before the spilled one is
+        # measured (same allocator state for both); its twin, captured after,
+        # is what the queries compare with
+        del plain
         sp, s1, t1, sp_alloc = capture_delta(make, dev, policy)
+        plain, s0, t0 = make(dev, None)
 
         def within(stats):
             # the policy never spills the last resident tensor
@@ -1180,6 +1408,248 @@ def main() -> int:
     check(any(v["spilled_payload_bytes"] for v in spill_t.values()), "no op tensor spilled")
     emit({"phase": "spill_tensors", "card": card, "results": spill_t,
           "batched_walk_launches": spill_t_walks})
+
+    # -- 7e. federation: each configuration captured a second time, split
+    # into a prep index and a serve index glued by an identity link (Compas
+    # and Census after their second op, TPC-DI between the join and the
+    # filter), and the two-link diamond at 100,000 rows.  Members run Q1-Q4
+    # (and Q6/Q7 hop traces) as segments: Compas's members on the fused
+    # walk, Census's on warm bitplane hop-caches, TPC-DI's and the
+    # diamond's on their default sessions.  Answers equal the merged
+    # index's, and on Compas the CPU run's (launch counts too).  Then one
+    # hot route per catalog flips to its stitched relation under the
+    # default cost gate, and its answers equal the segments'.
+    from repro_torch.provenance import FederatedSession
+    from repro_torch.provenance.catalog import split_ref
+
+    fed = {}
+    fed_counts = {}
+    fed_worlds = {}
+    for name, members in (("compas", "fused_walk"), ("census", "bitplane"),
+                          ("tpcdi_sf20", "default"), ("diamond", "default")):
+        t = time.perf_counter()
+        if name == "diamond":
+            m_idx, m_src, m_sink, cat, fsrc, fsink = diamond_worlds(100_000, dev)
+            rng_d = np.random.default_rng(SEED + 3)
+            qn = {"q1": probes(m_idx.datasets[m_src].n_rows),
+                  "q2": probes(m_idx.datasets[m_sink].n_rows),
+                  "a_src": attr_probe_sets(rng_d, m_idx.datasets[m_src].n_cols),
+                  "a_sink": attr_probe_sets(rng_d, m_idx.datasets[m_sink].n_cols)}
+        else:
+            m_idx, m_src, m_sink = indexes[name]
+            qn = queries[name]
+            if name == "tpcdi_sf20":
+                cat, fsrc, fsink, _ = split_join(20, dev)
+            else:
+                cat, fsrc, fsink, _ = split_usecase(name, 2, dev)
+        torch.cuda.synchronize()
+        capture = time.perf_counter() - t
+        how = name != "tpcdi_sf20"
+        got, counts, seg = federation_run(cat, fsrc, fsink, qn, members, how)
+        for k, n in counts.items():
+            fed_counts[k] = fed_counts.get(k, 0) + n
+        # the merged index on the card: the same queries through its
+        # default session (Q1/Q2 also equal the main path's walk answers)
+        want = lineage_queries(m_idx, m_src, m_sink, qn, how)
+        links = same_lineage(got, want, f"{name}: federated != merged")
+        if name in answers:
+            same(got["q1"], answers[name][0], f"{name}: federated Q1 != main path")
+            same(got["q2"], answers[name][1], f"{name}: federated Q2 != main path")
+        check(seg.counters["segments"] > 0 and seg.counters["cross_composes"] == 0,
+              f"{name}: segment session {seg.counters}")
+        row = {"members": members, "capture_s": capture, "launch_counts": counts,
+               "link_hops": links, "segment_counters": dict(seg.counters),
+               "member_planners": {m: s["planner"] for m, s in seg.stats()["indexes"].items()}}
+        if name == "compas":
+            # the same split, member sessions and queries on the CPU
+            cat_c, src_c, sink_c, _ = split_usecase("compas", 2, "cpu")
+            got_c, counts_c, seg_c = federation_run(cat_c, src_c, sink_c, qn, members, how)
+            same_lineage(got, got_c, "compas federated: card != CPU")
+            check(counts_c == counts, f"compas federated launches card {counts} != CPU {counts_c}")
+            check(seg_c.counters == seg.counters, "compas federated counters: card != CPU")
+            row["cpu_launch_counts"] = counts_c
+            del cat_c, got_c
+        # timings on the segment route, before any route turns hot
+        seg_ms = {}
+        for k, fn in (("q1", lambda: prov(cat).source(fsrc).rows_batch(qn["q1"]).forward()
+                       .to(fsink).run(seg)),
+                      ("q2", lambda: prov(cat).source(fsink).rows_batch(qn["q2"]).backward()
+                       .to(fsrc).run(seg)),
+                      ("q3", lambda: prov(cat).source(fsrc).rows_batch(qn["q1"])
+                       .attrs_batch(qn["a_src"]).forward().to(fsink).run(seg)),
+                      ("q4", lambda: prov(cat).source(fsink).rows_batch(qn["q2"])
+                       .attrs_batch(qn["a_sink"]).backward().to(fsrc).run(seg))):
+            seg_ms[k] = host_ms(fn)
+        merged_ms = {}
+        for k, fn in (("q1", lambda: prov(m_idx).source(m_src).rows_batch(qn["q1"]).forward()
+                       .to(m_sink).run()),
+                      ("q2", lambda: prov(m_idx).source(m_sink).rows_batch(qn["q2"]).backward()
+                       .to(m_src).run()),
+                      ("q3", lambda: prov(m_idx).source(m_src).rows_batch(qn["q1"])
+                       .attrs_batch(qn["a_src"]).forward().to(m_sink).run()),
+                      ("q4", lambda: prov(m_idx).source(m_sink).rows_batch(qn["q2"])
+                       .attrs_batch(qn["a_sink"]).backward().to(m_src).run())):
+            merged_ms[k] = host_ms(fn)
+        check(seg.counters["cross_composes"] == 0, f"{name}: a zero budget stitched")
+        # the hot route: the default gate over the same catalog (the store's
+        # budget back to its default); Q2's route composes on its first
+        # batch, then probes the stitched relation
+        hot = FederatedSession(cat, cross_budget_bytes=64 << 20)
+        q2_plan = prov(cat).source(fsink).rows_batch(qn["q2"]).backward().to(fsrc).plan()
+        q1_plan = prov(cat).source(fsrc).rows_batch(qn["q1"]).forward().to(fsink).plan()
+        first, first_s = sync_time(hot.run, q2_plan)
+        again = hot.run(q2_plan)
+        fwd = hot.run(q1_plan)
+        torch.cuda.synchronize()
+        for g, what in ((first, "first"), (again, "second")):
+            same(g, got["q2"], f"{name}: stitched Q2 ({what}) != segments")
+        same(fwd, got["q1"], f"{name}: stitched Q1 != segments")
+        check(hot.counters["cross_composes"] >= 1 and hot.counters["cross_probes"] >= 1,
+              f"{name}: the hot route never stitched: {hot.counters}")
+        route = hot._route(split_ref(fsink)[0], split_ref(fsrc)[0], reverse=True)
+        _, compose_s = sync_time(hot._compose_cross, fsink, fsrc, "bwd", *route)
+        row.update({
+            "hot_counters": dict(hot.counters), "cross_store_bytes": cat._cross_store.nbytes,
+            "cross_store_entries": len(cat._cross_store.entries),
+            "stitched_compose_ms": compose_s * 1e3, "first_hot_call_ms": first_s * 1e3,
+            "segments_ms": seg_ms, "merged_ms": merged_ms,
+            "stitched_ms": {
+                "q1": host_ms(lambda: prov(cat).source(fsrc).rows_batch(qn["q1"]).forward()
+                              .to(fsink).run(hot)),
+                "q2": host_ms(lambda: prov(cat).source(fsink).rows_batch(qn["q2"]).backward()
+                              .to(fsrc).run(hot))}})
+        fed[name] = row
+        fed_worlds[name] = cat
+        del got, want, seg, hot
+    check(fed_counts.get("batched_walk", 0) > 0 and fed_counts.get("bitmatmul", 0) > 0,
+          f"federation launches {fed_counts}")
+    emit({"phase": "federation", "card": card, "B": B, "results": fed,
+          "launch_counts": fed_counts,
+          "equal_federated_vs_merged": sorted(fed), "equal_card_vs_cpu": ["compas"]})
+    del fed_worlds
+
+    # -- 7f. impact: the erasure closure of 32 rows over a 9-op chain of
+    # 50,000 rows against per-row forward queries; a federated erasure on
+    # split Census against the merged index's plan, with a stitched relation
+    # and a spilled hop-cache entry invalidated (idempotently); a what-if
+    # replay of 8 patched rows over a 100,000-row pipeline against its full
+    # re-run on the card
+    from repro_torch.core.recompute import fetch_rows
+    from repro_torch.core.spill import SpillPolicy
+    from repro_torch.provenance import apply_invalidations, erasure_plan, whatif_replay
+
+    chain, chain_sink = erasure_chain(50_000, 9, dev)
+    erased = np.unique(np.random.default_rng(1).integers(0, 50_000, size=32))
+    plan, plan_s = sync_time(erasure_plan, chain, "src", erased)
+    per_row_probes = [[int(r)] for r in erased]
+    for ds in chain.datasets:
+        per = prov(chain).source("src").rows_batch(per_row_probes).forward().to(ds).run()
+        union = torch.unique(torch.cat(per))
+        imp = plan.impact(ds)
+        check(torch.equal(imp.rows if imp is not None else union[:0], union),
+              f"erasure closure != per-row queries at {ds}")
+    impact = {"chain": {"rows": 50_000, "hops": 9, "erased": len(erased),
+                        "datasets": len(plan.impacts),
+                        "affected_rows": sum(i.n_affected for i in plan.impacts),
+                        "first_plan_ms": plan_s * 1e3,
+                        "erasure_plan_ms": host_ms(lambda: erasure_plan(chain, "src", erased))}}
+    del chain
+
+    cen_cat, cen_src, cen_sink, cen_refs = split_usecase("census", 2, dev)
+    prep = cen_cat.members["prep"]._index
+    rel_bytes = 3 * 4 * prep.datasets[split_ref(cen_src)[1]].n_rows   # one identity CSR relation
+    store_dir = fresh_store("impact_census")
+    prep.composed(memory_budget_bytes=int(1.5 * rel_bytes), backend="csr",
+                  spill=SpillPolicy(path=str(store_dir)))
+    hot = FederatedSession(cen_cat, cross_min_demand=0)
+    hot.run(prov(cen_cat).source(cen_src).rows_batch(queries["census"]["q1"]).forward()
+            .to(cen_sink).plan())
+    for cref in cen_refs[1:3]:
+        prep.composed().relation(split_ref(cen_src)[1], split_ref(cref)[1])
+    pst = prep.composed().stats()
+    check(pst["spilled_entries"] > 0 and len(cen_cat._cross_store.entries) == 1,
+          f"census: nothing to invalidate: {pst}")
+    payloads = pst["spill"]["entries"]
+    m_idx, m_src, _ = indexes["census"]
+    census_rows = np.unique(np.random.default_rng(2).integers(0, m_idx.datasets[m_src].n_rows, 32))
+    fplan, fplan_s = sync_time(erasure_plan, cen_cat, cen_src, census_rows)
+    mplan = erasure_plan(m_idx, m_src, census_rows)
+    ref_of = dict(zip([m_src] + [op.output_id for op in m_idx.ops], cen_refs))
+    got_imp = {i.ref: i for i in fplan.impacts}
+    check([i.ref for i in fplan.impacts if i.ref != "serve/ingest"]
+          == [ref_of[i.ref] for i in mplan.impacts], "census: federated impacts != merged")
+    for i in mplan.impacts:
+        g = got_imp[ref_of[i.ref]]
+        check(torch.equal(g.rows, i.rows) and g.n_rows == i.n_rows
+              and g.materialized == i.materialized and g.is_sink == i.is_sink,
+              f"census: federated impact != merged at {i.ref}")
+    check(torch.equal(got_imp["serve/ingest"].rows, got_imp[cen_refs[2]].rows),
+          "census: the boundary's rows differ across the link")
+    kinds = [(i.kind, i.residency) for i in fplan.invalidations]
+    check(("cross", "fwd") in kinds and ("composed", "spilled") in kinds,
+          f"census: invalidations {kinds}")
+    dropped = apply_invalidations(cen_cat, fplan)
+    pst = prep.composed().stats()
+    check(dropped == len(fplan.invalidations) and not cen_cat._cross_store.entries
+          and cen_cat._cross_store.nbytes == 0 and pst["entries"] == 0
+          and pst["spilled_entries"] == 0 and pst["spill"]["entries"] < payloads,
+          f"census: apply dropped {dropped} of {len(fplan.invalidations)}: {pst}")
+    check(apply_invalidations(cen_cat, fplan) == 0, "census: a second apply dropped something")
+    impact["census_federated"] = {
+        "erased": len(census_rows), "impacts": len(fplan.impacts),
+        "invalidations": [{"kind": i.kind, "scope": i.scope, "residency": i.residency}
+                          for i in fplan.invalidations],
+        "dropped": dropped, "spill_payloads": [payloads, pst["spill"]["entries"]],
+        "est_total_ns": fplan.est_total_ns, "first_plan_ms": fplan_s * 1e3,
+        "erasure_plan_ms": host_ms(lambda: erasure_plan(cen_cat, cen_src, census_rows)),
+        "merged_erasure_plan_ms": host_ms(lambda: erasure_plan(m_idx, m_src, census_rows))}
+    prep.composed()._spill_store.close()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    del cen_cat, hot, prep
+
+    n_wi = 100_000
+    wrng = np.random.default_rng(3)
+    src_cols = {"k": np.arange(n_wi, dtype=np.float32),
+                "x": wrng.normal(size=n_wi).astype(np.float32),
+                "y": wrng.normal(size=n_wi).astype(np.float32)}
+    dims_cols = {"k": np.arange(n_wi, dtype=np.float32),
+                 "w": wrng.normal(size=n_wi).astype(np.float32)}
+    wi, wi_sink = build_whatif(src_cols, dims_cols, dev, "whatif")
+    patched_rows = np.unique(wrng.integers(0, n_wi, size=8)).tolist()
+    patch = {"x": [100.0 + i for i in range(len(patched_rows))]}
+    recorded = {d: r.table for d, r in wi.datasets.items()}
+    before = {d: (t.data.clone(), t.null.clone(), t.index.clone())
+              for d, t in recorded.items() if t is not None}
+    res, replay_s = sync_time(whatif_replay, wi, "src", patched_rows, patch, wi_sink)
+
+    def full_rerun():
+        cols = dict(src_cols, x=src_cols["x"].copy())
+        cols["x"][patched_rows] = np.asarray(patch["x"], dtype=np.float32)
+        ridx, rsink = build_whatif(cols, dims_cols, dev, "whatif_rerun")
+        return fetch_rows(ridx, rsink, res.sink_rows)
+
+    truth = full_rerun()
+    ok = ~truth.null
+    check(torch.equal(res.after.null, truth.null)
+          and torch.allclose(res.after.data[ok], truth.data[ok], rtol=1e-5, atol=1e-5),
+          "what-if replay != full re-run")
+    check(bool(res.changed.any()), "what-if moved no sink row")
+    for d, r in wi.datasets.items():
+        check(r.table is recorded[d], f"what-if left another table at {d}")
+        if r.table is not None:
+            check(all(torch.equal(a, b) for a, b in
+                      zip((r.table.data, r.table.null, r.table.index), before[d])),
+                  f"what-if changed the recorded table {d}")
+    impact["whatif"] = {
+        "rows": n_wi, "patched": len(patched_rows), "sink_rows": wi.datasets[wi_sink].n_rows,
+        "replayed_sink_rows": int(res.sink_rows.numel()), "changed": int(res.changed.sum()),
+        "first_replay_ms": replay_s * 1e3,
+        "whatif_replay_ms": host_ms(lambda: whatif_replay(wi, "src", patched_rows, patch,
+                                                          wi_sink)),
+        "full_rerun_ms": host_ms(full_rerun, reps=3),
+        "tolerance": {"rtol": 1e-5, "atol": 1e-5}}
+    del wi, res, truth
+    emit({"phase": "impact", "card": card, "results": impact})
 
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
@@ -1390,7 +1860,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/batched_walk.py:44",
          "launches": main_counts.get("batched_walk", 0), "max_abs_err": walk_err,
          "launches_by_path": {"walk": main_counts.get("batched_walk", 0),
-                              "spill_tensors": spill_t_walks},
+                              "spill_tensors": spill_t_walks,
+                              "federation": fed_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -1399,7 +1870,8 @@ def main() -> int:
          "launches": bitplane_counts.get("bitmatmul", 0), "max_abs_err": bm_err,
          "launches_by_path": {"hopcache_bitplane": bitplane_counts.get("bitmatmul", 0),
                               "attribute": attr_counts.get("bitmatmul", 0),
-                              "spill_hopcache": spill_hc_counts.get("bitmatmul", 0)},
+                              "spill_hopcache": spill_hc_counts.get("bitmatmul", 0),
+                              "federation": fed_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -1418,8 +1890,11 @@ def main() -> int:
     for k in ("batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"):
         n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")
-    for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts)):
+    for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts),
+                    ("federation", fed_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
+    check(fed_counts.get("batched_walk", 0) > 0,
+          "batched_walk was not launched on the federation path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -680,6 +680,38 @@ class ComposedIndex:
         """Which representation the (composed-on-demand) relation uses."""
         return self._relation_entry(src, dst).backend
 
+    def relation_csr(self, src: str, dst: str) -> torch.Tensor:
+        """The composed relation as a torch sparse CSR COPY (int32 indices,
+        float32 ones) whatever the entry's backend — the federation's
+        cross-index composition hook (a
+        :class:`~repro_torch.provenance.catalog.BoundaryHandle` grants
+        exactly this read for boundary-ancestor pairs).  Bitplane and
+        structured entries convert TRANSIENTLY: the cache entry, its backend
+        tag and the conversion counter are untouched."""
+        entry = self._relation_entry(src, dst)
+        if entry.backend == "csr":
+            # a COPY: handing out the live cached arrays would let a
+            # "read-only" BoundaryHandle corrupt the index's private cache
+            r = entry.rel
+            return torch.sparse_csr_tensor(
+                r.crow_indices().clone(), r.col_indices().clone(), r.values().clone(),
+                size=(entry.rows, entry.cols), check_invariants=False)
+        if entry.backend == "structured":
+            src_rows, dst_rows = self._structured_pairs(entry)
+            return csr_from_pairs(src_rows, dst_rows, entry.rows, entry.cols)
+        # unpack in row blocks: a large packed plane must not transiently
+        # materialize the full (rows, cols) bool array just to re-sparsify it
+        step = max(1, (4 << 20) // max(entry.cols, 1))
+        rows, cols = [], []
+        for lo in range(0, entry.rows, step):
+            r, c = torch.nonzero(unpack_bitplane(entry.rel[lo: lo + step], entry.cols),
+                                 as_tuple=True)
+            rows.append(r + lo)
+            cols.append(c)
+        if not rows:
+            rows = cols = [torch.zeros(0, dtype=torch.int64, device=self.device)]
+        return csr_from_pairs(torch.cat(rows), torch.cat(cols), entry.rows, entry.cols)
+
     # -- batched probes -------------------------------------------------------
     def _probe_masks(self, rows, n: int) -> Tuple[torch.Tensor, bool]:
         from repro_torch.core.query import _as_mask, _as_mask_batch, is_probe_batch

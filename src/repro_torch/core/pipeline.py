@@ -226,9 +226,14 @@ class ProvenanceIndex:
         return self._composed
 
     def export(self, dataset_id: str):
-        """A read-only boundary handle over ``dataset_id`` (federation)."""
-        raise NotImplementedError(
-            "boundary handles (federation) are not ported yet (ROADMAP A8)")
+        """A read-only :class:`~repro_torch.provenance.catalog.BoundaryHandle`
+        over the ancestors of ``dataset_id`` — the capability a downstream
+        owner registers in a
+        :class:`~repro_torch.provenance.catalog.ProvCatalog` instead of
+        this index: probes only, no ``record`` / ``add_source``."""
+        from repro_torch.provenance.catalog import BoundaryHandle  # circular at module scope
+
+        return BoundaryHandle(self, dataset_id)
 
     def session(self, **kwargs):
         """The index's shared :class:`~repro_torch.provenance.session.QuerySession`

@@ -13,7 +13,7 @@ Table XI's join cardinalities per scale factor.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,17 @@ __all__ = [
     "run_census",
     "make_tpcdi_join_inputs",
     "USECASES",
+    "STEPS",
+    "run_steps",
     "TPCDI_SCALES",
 ]
+
+
+def run_steps(d: TrackedTable, steps) -> TrackedTable:
+    """Apply ``steps`` (callables on a tracked table) in order."""
+    for step in steps:
+        d = step(d)
+    return d
 
 
 def _rand_table(n_rows: int, n_cols: int, n_cat: int, seed: int, device,
@@ -57,13 +66,16 @@ def make_german(seed: int = 0, device=None) -> Table:
     return _rand_table(1000, 21, n_cat=13, seed=seed, device=device)
 
 
+GERMAN_STEPS = [
+    lambda d: d.impute([f"a{j}" for j in range(13, 21)], strategy="mean"),    # 1
+    lambda d: d.normalize([f"a{j}" for j in range(13, 21)], kind="zscore"),   # 2
+    lambda d: d.onehot("a0", n_values=9),                                     # 3: 21+9=30
+    lambda d: d.onehot("a1", n_values=30),                                    # 4: 30+30=60
+]
+
+
 def run_german(index: ProvenanceIndex, t: Table) -> TrackedTable:
-    d = track(t, index, "german_src")
-    d = d.impute([f"a{j}" for j in range(13, 21)], strategy="mean")         # 1
-    d = d.normalize([f"a{j}" for j in range(13, 21)], kind="zscore")        # 2
-    d = d.onehot("a0", n_values=9)                                          # 3: 21+9=30
-    d = d.onehot("a1", n_values=30)                                         # 4: 30+30=60
-    return d.mark_sink()
+    return run_steps(track(t, index, "german_src"), GERMAN_STEPS).mark_sink()
 
 
 # ---------------------------------------------------------------------------
@@ -73,22 +85,30 @@ def make_compas(seed: int = 1, device=None) -> Table:
     return _rand_table(7214, 53, n_cat=20, seed=seed, device=device)
 
 
-def run_compas(index: ProvenanceIndex, t: Table) -> TrackedTable:
-    d = track(t, index, "compas_src")
-    d = d.impute(["a25", "a30"], strategy="median")                          # 1
-    # keep the top-6907 rows by a21 (value-driven threshold, exact Table VIII count)
+def _compas_filter(d: TrackedTable) -> TrackedTable:
+    """Keep the top-6907 rows by a21 (value-driven threshold, exact Table
+    VIII count)."""
     vals = d.table.col("a21")
     thresh = torch.kthvalue(vals, len(vals) - 6907 + 1).values  # np.partition's pick
     kept = torch.nonzero(vals >= thresh).reshape(-1)[:6907]
     m2 = torch.zeros(len(vals), dtype=torch.bool, device=vals.device)
     m2[kept] = True
-    d = d.filter_rows(m2, op_name="filter:days_b_screening")                 # 2 -> 6907 rows
-    d = d.value_transform("a22", "clip", lo=-3.0, hi=3.0)                    # 3
-    d = d.binarize("a23", threshold=0.0)                                     # 4
-    d = d.discretize("a24", n_bins=4, kind="quantile")                       # 5
-    d = d.normalize(["a22"], kind="minmax")                                  # 6
-    d = d.select_columns([f"a{j}" for j in (0, 5, 21, 22, 23, 24, 25, 30)])  # 7 -> 8 attrs
-    return d.mark_sink()
+    return d.filter_rows(m2, op_name="filter:days_b_screening")
+
+
+COMPAS_STEPS = [
+    lambda d: d.impute(["a25", "a30"], strategy="median"),                    # 1
+    _compas_filter,                                                           # 2 -> 6907 rows
+    lambda d: d.value_transform("a22", "clip", lo=-3.0, hi=3.0),              # 3
+    lambda d: d.binarize("a23", threshold=0.0),                               # 4
+    lambda d: d.discretize("a24", n_bins=4, kind="quantile"),                 # 5
+    lambda d: d.normalize(["a22"], kind="minmax"),                            # 6
+    lambda d: d.select_columns([f"a{j}" for j in (0, 5, 21, 22, 23, 24, 25, 30)]),  # 7 -> 8 attrs
+]
+
+
+def run_compas(index: ProvenanceIndex, t: Table) -> TrackedTable:
+    return run_steps(track(t, index, "compas_src"), COMPAS_STEPS).mark_sink()
 
 
 # ---------------------------------------------------------------------------
@@ -98,20 +118,31 @@ def make_census(seed: int = 2, device=None) -> Table:
     return _rand_table(32561, 15, n_cat=9, seed=seed, device=device)
 
 
+CENSUS_STEPS = [
+    lambda d: d.impute([f"a{j}" for j in range(9, 15)], strategy="mean"),     # 1
+    lambda d: d.normalize([f"a{j}" for j in range(9, 15)], kind="zscore"),    # 2
+    lambda d: d.onehot("a0", n_values=9),                                     # 3: 15+9=24
+    lambda d: d.onehot("a1", n_values=16),                                    # 4: 24+16=40
+    lambda d: d.onehot("a2", n_values=64),                                    # 5: 40+64=104
+]
+
+
 def run_census(index: ProvenanceIndex, t: Table) -> TrackedTable:
-    d = track(t, index, "census_src")
-    d = d.impute([f"a{j}" for j in range(9, 15)], strategy="mean")           # 1
-    d = d.normalize([f"a{j}" for j in range(9, 15)], kind="zscore")          # 2
-    d = d.onehot("a0", n_values=9)                                           # 3: 15+9=24
-    d = d.onehot("a1", n_values=16)                                          # 4: 24+16=40
-    d = d.onehot("a2", n_values=64)                                          # 5: 40+64=104
-    return d.mark_sink()
+    return run_steps(track(t, index, "census_src"), CENSUS_STEPS).mark_sink()
 
 
 USECASES: Dict[str, Tuple[Callable[..., Table], Callable]] = {
     "german": (make_german, run_german),
     "compas": (make_compas, run_compas),
     "census": (make_census, run_census),
+}
+
+# each use case's op list, so a pipeline can also be captured in pieces
+# (e.g. split across the indexes of a federation at any op)
+STEPS: Dict[str, List[Callable[[TrackedTable], TrackedTable]]] = {
+    "german": GERMAN_STEPS,
+    "compas": COMPAS_STEPS,
+    "census": CENSUS_STEPS,
 }
 
 

@@ -17,6 +17,14 @@ from ``.plan()`` is handed to a
 
 Batch probes are EXPLICIT — ``.rows_batch([...])`` / ``.attrs_batch([...])``.
 Probe masks are built on the index's device.
+
+The same builder spells FEDERATED queries: hand :func:`prov` a
+:class:`~repro_torch.provenance.catalog.ProvCatalog` instead of an index and
+use index-qualified refs — ``prov(catalog).source("prep/raw").rows([...])
+.forward().to("serve/responses").run()`` compiles to the same
+:class:`QueryPlan` IR (refs are opaque strings to the plan), with probe
+masks on the catalog's device, and executes through the catalog's shared
+:class:`~repro_torch.provenance.federation.FederatedSession`.
 """
 from __future__ import annotations
 
@@ -32,7 +40,12 @@ __all__ = ["prov", "ProvQuery"]
 
 def _unknown_dataset(holder, dataset_id: str) -> KeyError:
     """The error for a dataset ref ``holder`` does not know."""
-    return KeyError(f"unknown dataset {dataset_id!r} in {getattr(holder, 'name', holder)!r}")
+    hint = ""
+    if hasattr(holder, "resolve"):          # a ProvCatalog
+        hint = (" (catalog refs are index-qualified: 'index/dataset', "
+                f"registered indexes: {sorted(holder.members)})")
+    return KeyError(f"unknown dataset {dataset_id!r} in "
+                    f"{getattr(holder, 'name', holder)!r}{hint}")
 
 
 def _single_mask(rows, n: int, what: str, device) -> torch.Tensor:
@@ -116,7 +129,8 @@ class ProvQuery:
 
     # -- probe anchoring ------------------------------------------------------
     def source(self, dataset_id: str) -> "ProvQuery":
-        """The dataset the row probe lives in (probe origin, either end)."""
+        """The dataset the row probe lives in (probe origin, either end).
+        Over a catalog, an index-qualified ref (``"prep/raw"``)."""
         self._source = self._known(dataset_id)
         return self
 
@@ -152,7 +166,7 @@ class ProvQuery:
         return self
 
     def to(self, dataset_id: str) -> "ProvQuery":
-        """The answer dataset."""
+        """The answer dataset (index-qualified over a catalog)."""
         self._target = self._known(dataset_id)
         return self
 
@@ -237,13 +251,16 @@ class ProvQuery:
         )
 
     def run(self, session=None):
-        """Execute through ``session`` (default: the index's shared session)."""
+        """Execute through ``session`` (default: the shared session of the
+        index or catalog this builder was opened over)."""
         if session is None:
             session = self._index.session()
         return session.run(self.plan())
 
 
 def prov(index) -> ProvQuery:
-    """Entry point: a fresh lazy builder over a
-    :class:`~repro_torch.core.pipeline.ProvenanceIndex`."""
+    """Entry point: a fresh lazy builder over ``index`` — a
+    :class:`~repro_torch.core.pipeline.ProvenanceIndex` (bare dataset ids)
+    or a :class:`~repro_torch.provenance.catalog.ProvCatalog` (qualified
+    refs)."""
     return ProvQuery(index)

@@ -108,8 +108,13 @@ class QueryPlan:
 
     def refs(self) -> Tuple[str, ...]:
         """Every dataset ref the plan touches (source, target, via, anchor).
-        Refs are opaque strings to the IR; the executing session owns their
-        interpretation."""
+        Refs are opaque strings to the IR: a plan compiled over one index
+        carries bare dataset ids, one compiled over a
+        :class:`~repro_torch.provenance.catalog.ProvCatalog` carries
+        index-qualified ``"name/dataset"`` refs — the executing session
+        (``QuerySession`` vs ``FederatedSession``) owns the interpretation.
+        Capability validation (``BoundaryHandle``) and federated routing
+        both enumerate a plan's footprint through this."""
         return tuple(
             r for r in (self.source, self.target, self.via, self.anchor)
             if r is not None

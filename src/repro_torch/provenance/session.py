@@ -54,11 +54,53 @@ from repro_torch.core import query as Q
 from repro_torch.core.costmodel import constants_provenance
 from repro_torch.provenance.plan import QueryPlan
 
-__all__ = ["QuerySession"]
+__all__ = ["QuerySession", "run_many_fused"]
 
 
 def _flatnonzeros(mask_stack: torch.Tensor) -> List[torch.Tensor]:
     return [torch.nonzero(m).reshape(-1) for m in mask_stack]
+
+
+def run_many_fused(plans: Sequence, run_one, execute_batched,
+                   counters: Dict[str, int]) -> List:
+    """The shared ``run_many`` fusion contract: group plans by
+    ``fuse_key()``, concatenate each group's probe mask stacks along the
+    batch axis, execute ONE batched pass per group via ``execute_batched``
+    (one payload per probe), and split results back in submission order.
+    Singleton groups and ``transformations`` plans go to ``run_one``.  Both
+    :class:`QuerySession` and the catalog-level
+    :class:`~repro_torch.provenance.federation.FederatedSession` run on
+    this, so fusion cannot drift between the single-index and federated
+    surfaces."""
+    plans = [p if isinstance(p, QueryPlan) else p.plan() for p in plans]
+    results: List = [None] * len(plans)
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(plans):
+        groups.setdefault(p.fuse_key(), []).append(i)
+    for key, idxs in groups.items():
+        if len(idxs) == 1 or key[0] == "transformations":
+            for i in idxs:
+                results[i] = run_one(plans[i])
+            continue
+        sub = [plans[i] for i in idxs]
+        fused = dataclasses.replace(
+            sub[0],
+            rows=torch.cat([p.rows for p in sub], dim=0),
+            attrs=(torch.cat([p.attrs for p in sub], dim=0)
+                   if sub[0].attrs is not None else None),
+            batched=True,
+        )
+        counters["plans"] += len(idxs)
+        counters["fused_groups"] += 1
+        counters["fused_plans"] += len(idxs)
+        per = execute_batched(fused)
+        off = 0
+        for i in idxs:
+            p = plans[i]
+            chunk = per[off: off + p.n_probes]
+            off += p.n_probes
+            results[i] = chunk if p.batched else chunk[0]
+    return results
 
 
 class QuerySession:
@@ -215,39 +257,9 @@ class QuerySession:
 
     def run_many(self, plans: Sequence) -> List:
         """Execute a batch of plans (builders or compiled plans), fusing
-        same-fuse-key plans into one physical pass each: their probe mask
-        stacks concatenate along the batch axis, one execution answers the
-        union, and results split back in submission order.  Singleton groups
-        and ``transformations`` plans run on their own."""
-        plans = [p if isinstance(p, QueryPlan) else p.plan() for p in plans]
-        results: List = [None] * len(plans)
-        groups: Dict[tuple, List[int]] = {}
-        for i, p in enumerate(plans):
-            groups.setdefault(p.fuse_key(), []).append(i)
-        for key, idxs in groups.items():
-            if len(idxs) == 1 or key[0] == "transformations":
-                for i in idxs:
-                    results[i] = self.run(plans[i])
-                continue
-            sub = [plans[i] for i in idxs]
-            fused = dataclasses.replace(
-                sub[0],
-                rows=torch.cat([p.rows for p in sub], dim=0),
-                attrs=(torch.cat([p.attrs for p in sub], dim=0)
-                       if sub[0].attrs is not None else None),
-                batched=True,
-            )
-            self.counters["plans"] += len(idxs)
-            self.counters["fused_groups"] += 1
-            self.counters["fused_plans"] += len(idxs)
-            per = self._execute(fused)
-            off = 0
-            for i in idxs:
-                p = plans[i]
-                chunk = per[off: off + p.n_probes]
-                off += p.n_probes
-                results[i] = chunk if p.batched else chunk[0]
-        return results
+        same-fuse-key plans into one physical pass each
+        (:func:`run_many_fused`).  Results come back in submission order."""
+        return run_many_fused(plans, self.run, self._execute, self.counters)
 
     def run_masks(self, plan: QueryPlan) -> torch.Tensor:
         """Execute a plain record-level plan and return the RAW ``(B,

@@ -72,7 +72,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert lines["BAD"] == "[]", out.stdout
     for mod in ("repro_torch.kernels.batched_walk", "repro_torch.core.carry",
-                "repro_torch.provenance.session", "repro_torch.dataprep.usecases"):
+                "repro_torch.provenance.session", "repro_torch.dataprep.usecases",
+                "repro_torch.provenance.catalog", "repro_torch.provenance.federation",
+                "repro_torch.provenance.impact"):
         assert repr(mod) in lines["MODULES"]
 
 
@@ -96,12 +98,16 @@ def test_no_import_statement_names_jax_or_the_reference():
 def test_default_device_is_cuda_or_raises():
     from repro_torch.core.pipeline import ProvenanceIndex
     from repro_torch.dataprep.table import Table
+    from repro_torch.provenance import ProvCatalog
 
     if torch.cuda.is_available():
         assert ProvenanceIndex().device.type == "cuda"
+        assert ProvCatalog().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProvenanceIndex()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProvCatalog()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Table.from_columns({"a": np.zeros(2, np.float32)})
     assert ProvenanceIndex(device="cpu").device == torch.device("cpu")

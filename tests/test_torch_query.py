@@ -25,7 +25,7 @@ from repro_torch.dataprep import usecases as TU
 from repro_torch.dataprep.table import Table
 from repro_torch.dataprep.tracked import track
 from repro_torch.kernels import ops as TK
-from repro_torch.provenance import QuerySession, prov
+from repro_torch.provenance import BoundaryHandle, CapabilityError, QuerySession, prov
 from test_torch_capture import build_merged
 
 CPU = "cpu"
@@ -209,9 +209,9 @@ def test_run_many_fuses_and_keeps_submission_order():
 
 def test_unported_strategies_raise():
     """Cells plans (attribute level) route to the walk and a session over a
-    spilled hop-cache answers like the default one; boundary handles
-    (federation) still raise, naming their ROADMAP item.  The hop-cache
-    route is the default."""
+    spilled hop-cache answers like the default one; ``export`` (no longer
+    unported) mints a read-only boundary handle whose mutation verbs raise.
+    The hop-cache route is the default."""
     t_idx, sink = _diamond(3)
     assert QuerySession(t_idx).use_hopcache is True
     session = QuerySession(t_idx)
@@ -223,8 +223,10 @@ def test_unported_strategies_raise():
     probe = prov(t_idx).source(sink).rows_batch([[0], [n - 1]]).backward().to("src")
     for got, want in zip(probe.run(spilled), probe.run(QuerySession(t_idx))):
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="A8"):
-        t_idx.export(sink)
+    handle = t_idx.export(sink)
+    assert isinstance(handle, BoundaryHandle) and set(handle.datasets) == set(t_idx.datasets)
+    with pytest.raises(CapabilityError, match="read-only"):
+        handle.record([], "x", None, None)
 
 
 def test_builder_validates_probes():
