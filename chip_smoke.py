@@ -19,7 +19,12 @@ PyTorch built for CUDA.  It
    at the Compas and Census composition shapes, and the attribute walk's
    shapes (A 64 x 1-4 words, B 1-104 rows x 1-4 words); ``bitset_rank`` and
    ``lineage_gather`` with Q = 1..257, degree 0 and ``max_deg`` above every
-   degree;
+   degree, and at the redesigned kernels' edges: W at 0, 1, one and five
+   tiles of 8192 words +- 1 and about 600 tiles, words 4 bytes past a
+   16-byte boundary, positions at tile and line edges and past the set,
+   all queries in one tile, 70,000 queries, Q = 0; ``max_deg`` 1 to 5, 8,
+   33 and 130 with degree-0 rows, rows longer than ``max_deg``, queries
+   outside [0, R), and Q from 1 to 100,003;
 4. drives the record-level main path on the card: capture of the German,
    Compas and Census use cases at their Table VIII sizes and of a TPC-DI
    join at scale factor 20 followed by a filter, then B = 64 Q1 and Q2
@@ -40,8 +45,9 @@ PyTorch built for CUDA.  It
    kernel against its plain version on the real Compas and Census
    compositions;
 7. runs the per-hop baseline ``batched_walk_unfused`` against the fused
-   walk on the Compas Q1 and Q2 chains: byte-equal, in K x 3 launches
-   (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against 1; then
+   walk on the Compas and Census Q1 and Q2 chains: byte-equal, in K x 3
+   launches (``bitmatmul``, ``bitset_rank``, ``lineage_gather``) against
+   1, each hop's rank and gather equal to their plain versions; then
    (``attribute``) Q3/Q4 with B = 64 probes of 8 rows and 4 attributes on
    all four configurations and Q7/Q8 on German and Compas: every attribute
    hop's ``bitmatmul`` output equals its plain version, cell rows lie in
@@ -80,7 +86,12 @@ PyTorch built for CUDA.  It
    time (``device_ms``: the calls queued behind a device spin, so the CUDA
    events bracket device work, not the Python launch rate) and, beside
    it, the host-paced time of back-to-back calls (``event_ms``); the walk
-   and the probe at 1, 8 and 64 rows per probe and a Census walk; then
+   and the probe at 1, 8 and 64 rows per probe and a Census walk;
+   ``bitset_rank`` and ``lineage_gather`` on the first hop of the Compas
+   and Census Q2 baselines and at TPC-DI SF20 (the rank over the 64-probe
+   Q2 frontier at the join's 2,411,006-row input, the gather of every row
+   of the join's out -> in CSR), the SF20 inputs held to the plain
+   versions and timed cold, rotating among copies that exceed the L2; then
    end-to-end latencies of the walk, the default hop-cache and the
    bitplane hop-cache.
 
@@ -321,6 +332,227 @@ def capture_delta(make, device, spill=None):
     torch.cuda.synchronize()
     after = device_bytes(device)
     return idx, src, sink, (after[0] - before[0], after[1] - before[1])
+
+
+# -- bitset_rank and lineage_gather (phases 3, 7 and 9) ------------------------
+def rank_edge_positions(w: int, device) -> torch.Tensor:
+    """Positions at the rank kernel's tile and line starts and ends, at the
+    ends of a W-word set and past it, and below 0."""
+    from repro_torch.kernels.bitset_rank import LINE_WORDS, TILE_WORDS
+
+    n = 32 * w
+    pts = {-5, -1, 0, 1, 31, 32, n - 1, n, n + 77}
+    for t in range(-(-w // TILE_WORDS) + 1):
+        pts |= {32 * t * TILE_WORDS + d for d in (-33, -32, -1, 0, 1, 32)}
+    for line in (1, 2, 255, 256, 257):
+        pts |= {32 * LINE_WORDS * line - 1, 32 * LINE_WORDS * line}
+    return torch.tensor(sorted(p for p in pts if p < n + 100), dtype=torch.int32, device=device)
+
+
+def rank_sweep(rank_fn, gen, device):
+    """``rank_fn`` against ``ref.bitset_rank_ref``, tolerance 0, at the
+    redesigned kernel's edges: W at 0, 1, one and five tiles +- 1 and about
+    600 tiles; positions at tile and line edges and past the set; 500
+    queries in one tile; 70,000 queries (274 answer CTAs, more than the
+    tiles); the words at a 16-byte boundary and 4 bytes past one (the
+    kernels' scalar loads); and Q = 0.  Returns (cases, max error, the
+    geometries run)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitset_rank import TILE_WORDS, rank_geometry
+
+    def positions(lo, hi, q):
+        return torch.randint(lo, hi, (q,), generator=gen, device=device,
+                             dtype=torch.int64).to(torch.int32)
+
+    cases, err, geometries = 0, 0, set()
+    for w in (0, 1, TILE_WORDS - 1, TILE_WORDS, TILE_WORDS + 1, 5 * TILE_WORDS - 1,
+              5 * TILE_WORDS + 1, 600 * TILE_WORDS + 17):
+        for offset in (0, 1):
+            buf = torch.randint(-(1 << 31), (1 << 31) - 1, (w + offset,), generator=gen,
+                                device=device, dtype=torch.int64).to(torch.int32)
+            buf[torch.rand(w + offset, generator=gen, device=device) < 0.2] = -1   # full words
+            words = buf[offset:]
+            sets = [rank_edge_positions(w, device), positions(-3, 32 * w + 40, 70_000)]
+            if w > 2 * TILE_WORDS:
+                sets.append(positions(32 * TILE_WORDS, 64 * TILE_WORDS, 500))
+            for pos in sets:
+                e = int((rank_fn(words, pos) - ref.bitset_rank_ref(words, pos)).abs().max())
+                check(e == 0, f"bitset_rank != plain at W={w} offset={offset} Q={pos.numel()}")
+                err = max(err, e)
+                cases += 1
+                geometries.add(rank_geometry(w, pos.numel()))
+    check(rank_fn(words, positions(0, 1, 0)).numel() == 0, "bitset_rank at Q = 0")
+    return cases + 1, err, geometries
+
+
+def gather_sweep(gather_fn, gen, device):
+    """``gather_fn`` against ``ref.lineage_gather_ref``, tolerance 0, at the
+    redesigned kernel's edges: max_deg 1 to 5, 8, 33 and 130 (a thread's
+    four words inside a row, across rows and across CTAs), degree-0 rows,
+    rows longer than max_deg, queries outside [0, R), and Q = 1, 5 and tens
+    of thousands (hundreds of CTAs).  Returns (cases, max error, the
+    geometries run)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lineage_gather import gather_geometry
+
+    cases, err, geometries = 0, 0, set()
+    n_rows = 5000
+    for md in (1, 2, 3, 4, 5, 8, 33, 130):
+        deg = torch.randint(0, 2 * md + 2, (n_rows,), generator=gen, device=device)
+        deg[::5] = 0
+        deg[1::7] = md + 3
+        rp = torch.zeros(n_rows + 1, dtype=torch.int32, device=device)
+        rp[1:] = torch.cumsum(deg, 0)
+        col = torch.randint(0, 1 << 30, (int(rp[-1]),), generator=gen, device=device,
+                            dtype=torch.int64).to(torch.int32)
+        for q in (1, 5, 100_003 if md <= 8 else 20_011):
+            qs = torch.randint(-2, n_rows + 2, (q,), generator=gen, device=device,
+                               dtype=torch.int64).to(torch.int32)
+            e = int((gather_fn(qs, rp, col, md)
+                     - ref.lineage_gather_ref(qs, rp, col, max_deg=md)).abs().max())
+            check(e == 0, f"lineage_gather != plain at max_deg={md} Q={q}")
+            err = max(err, e)
+            cases += 1
+            geometries.add(gather_geometry(q, md))
+    return cases, err, geometries
+
+
+def hop_inputs(mask, planes, device):
+    """Each hop's rank and gather inputs in the per-hop baseline, built as
+    ``ops.batched_walk_unfused`` builds them but from the plain versions'
+    frontiers, with the table the gather must give (the frontier's set
+    bits, in order)."""
+    from repro_torch.kernels import ref
+
+    b = mask.shape[0]
+    cur = mask
+    for plane in planes:
+        cur = ref.bitmatmul_ref(cur, plane)
+        fw = cur.shape[1]
+        flat = cur.reshape(-1)
+        ends = torch.arange(1, b + 1, dtype=torch.int32, device=device) * (fw * 32) - 1
+        counts = torch.diff(ref.bitset_rank_ref(flat, ends),
+                            prepend=torch.zeros(1, dtype=torch.int32, device=device))
+        rp = torch.zeros(b + 1, dtype=torch.int32, device=device)
+        rp[1:] = torch.cumsum(counts, 0)
+        rows, col = torch.nonzero(ref.unpack_bits(cur, fw * 32), as_tuple=True)
+        md = max(int(counts.max()), 1)
+        table = torch.full((b, md), -1, dtype=torch.int32, device=device)
+        table[rows, torch.arange(rows.numel(), device=device) - rp[rows].to(torch.int64)] = \
+            col.to(torch.int32)
+        yield {"flat": flat, "ends": ends, "rp": rp, "col": col.to(torch.int32),
+               "md": md, "table": table}
+
+
+def per_hop_baseline(name, chains, device, rank_fn, gather_fn):
+    """The per-hop baseline against the fused walk on one configuration's
+    Q1 and Q2 chains (``chains``: {"q1"/"q2": (packed mask, planes)}):
+    byte-equal answers in 3 launches a hop against 1, then ``rank_fn`` and
+    ``gather_fn`` on the inputs of every hop of both chains against their
+    plain versions (tolerance 0) and each table against its frontier.
+    Returns (unfused counts, fused counts, per-hop inputs, rank error,
+    gather error)."""
+    from repro_torch.kernels import ops, ref
+
+    hops = sum(len(planes) for _, planes in chains.values())
+    ops.reset_launch_counts()
+    unfused = {q: ops.batched_walk_unfused(mask, planes) for q, (mask, planes) in chains.items()}
+    torch.cuda.synchronize()
+    unfused_counts = ops.launch_counts()
+    check(unfused_counts == {"bitmatmul": hops, "bitset_rank": hops, "lineage_gather": hops},
+          f"{name} unfused launches {unfused_counts}, expected 3 a hop over {hops} hops")
+    ops.reset_launch_counts()
+    fused = {q: ops.batched_walk(mask, planes) for q, (mask, planes) in chains.items()}
+    torch.cuda.synchronize()
+    fused_counts = ops.launch_counts()
+    check(fused_counts == {"batched_walk": len(chains)},
+          f"{name} fused launches {fused_counts}, expected 1 per chain")
+    for q in chains:
+        check(torch.equal(unfused[q][0], fused[q][0]) and torch.equal(unfused[q][1], fused[q][1]),
+              f"{name} {q}: unfused != fused")
+    per_hop = {q: list(hop_inputs(mask, planes, device)) for q, (mask, planes) in chains.items()}
+    rank_err = gather_err = 0
+    for q, hs in per_hop.items():
+        for j, h in enumerate(hs):
+            qs = torch.arange(h["rp"].numel() - 1, dtype=torch.int32, device=device)
+            err = int((rank_fn(h["flat"], h["ends"])
+                       - ref.bitset_rank_ref(h["flat"], h["ends"])).abs().max())
+            check(err == 0, f"bitset_rank != plain at {name} {q} hop {j}")
+            rank_err = max(rank_err, err)
+            got = gather_fn(qs, h["rp"], h["col"], h["md"])
+            err = int((got - ref.lineage_gather_ref(qs, h["rp"], h["col"], max_deg=h["md"]))
+                      .abs().max())
+            check(err == 0, f"lineage_gather != plain at {name} {q} hop {j}")
+            check(torch.equal(got, h["table"]), f"lineage_gather table != frontier at {name} {q} hop {j}")
+            gather_err = max(gather_err, err)
+    torch.cuda.synchronize()
+    return unfused_counts, fused_counts, per_hop, rank_err, gather_err
+
+
+def _rotate(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` (argument tuples), round
+    robin: with enough copies to exceed the 50 MB L2 each call meets a cold
+    cache, as a caller does."""
+    i = [0]
+
+    def call():
+        args = copies[i[0] % len(copies)]
+        i[0] += 1
+        return fn(*args)
+    return call
+
+
+def _bound(row, moved, ops_ms, launches):
+    row.update({"bound_bytes": moved, "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "ops_ms": ops_ms, "launches_per_call": launches})
+    row["bound_ms"] = max(row["bytes_ms"], ops_ms)
+    row["bound_by"] = "bytes" if row["bytes_ms"] >= ops_ms else "operations"
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def rank_times(copies, plain_reps=5):
+    """Device, host-paced and plain ms and the bound of ``bitset_rank_cuda``
+    on ``copies`` ((words, positions) of one shape, rotated): every word
+    read once, every position read and rank written once, one popcount a
+    word and a query."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitset_rank import bitset_rank_cuda, rank_geometry
+
+    w, q = copies[0][0].numel(), copies[0][1].numel()
+    geo = rank_geometry(w, q)
+    row = {"shape": {"W": w, "Q": q}, "geometry": geo._asdict(), "copies": len(copies),
+           "rotated_bytes": sum(c[0].numel() * 4 for c in copies),
+           "ms": device_ms(_rotate(bitset_rank_cuda, copies)),
+           "host_paced_ms": event_ms(_rotate(bitset_rank_cuda, copies)),
+           "plain_ms": device_ms(_rotate(ref.bitset_rank_ref, copies), reps=plain_reps),
+           "library_ms": None}
+    return _bound(row, (w + 2 * q) * 4, (w + q) / POPC_PER_S * 1e3, geo.launches)
+
+
+def gather_times(copies, max_deg, plain_reps=5):
+    """Device, host-paced and plain ms and the bound of
+    ``lineage_gather_cuda`` on ``copies`` ((queries, row_ptr, col_idx) of
+    one shape, rotated): queries, row pointers and the entries the table
+    holds read once, the table written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lineage_gather import gather_geometry, lineage_gather_cuda
+
+    qs, rp, _ = copies[0]
+    q, r = qs.numel(), rp.numel() - 1
+    inside = qs[(qs >= 0) & (qs < r)].to(torch.int64)
+    entries = int((rp[inside + 1] - rp[inside]).clamp(max=max_deg).sum())
+    row = {"shape": {"Q": q, "R": r, "nnz": copies[0][2].numel(), "max_deg": max_deg,
+                     "entries": entries},
+           "geometry": gather_geometry(q, max_deg)._asdict(), "copies": len(copies),
+           "rotated_bytes": sum(sum(t.numel() for t in c) * 4 for c in copies),
+           "ms": device_ms(_rotate(lambda a, b, c: lineage_gather_cuda(a, b, c, max_deg), copies)),
+           "host_paced_ms": event_ms(
+               _rotate(lambda a, b, c: lineage_gather_cuda(a, b, c, max_deg), copies)),
+           "plain_ms": device_ms(_rotate(lambda a, b, c: ref.lineage_gather_ref(
+               a, b, c, max_deg=max_deg), copies), reps=plain_reps),
+           "library_ms": None}
+    return _bound(row, (q + r + 1 + entries + q * max_deg) * 4, 0.0, 1)
 
 
 
@@ -710,8 +942,15 @@ def main() -> int:
             check(err == 0, f"bitset_rank != plain at W={w} Q={q}")
             rank_err = max(rank_err, err)
             n_cases += 1
-    emit({"phase": "bitset_rank_vs_plain", "cases": n_cases, "max_abs_err": rank_err,
-          "tolerance": 0})
+    edge_cases, edge_err, rank_geometries = rank_sweep(bitset_rank_cuda, gen, dev)
+    torch.cuda.synchronize()
+    rank_err = max(rank_err, edge_err)
+    check({g.launches for g in rank_geometries} == {1, 2}
+          and any(g.answer_ctas > g.tiles > 1 for g in rank_geometries),
+          f"rank edge geometries {sorted(rank_geometries)}")
+    emit({"phase": "bitset_rank_vs_plain", "cases": n_cases + edge_cases, "max_abs_err": rank_err,
+          "tolerance": 0, "edge_cases": edge_cases,
+          "edge_geometries": sorted(list(g) for g in rank_geometries)})
 
     gather_err = 0
     n_cases = 0
@@ -731,8 +970,14 @@ def main() -> int:
                     check(err == 0, f"lineage_gather != plain at R={r} max_deg={md} Q={q}")
                     gather_err = max(gather_err, err)
                     n_cases += 1
-    emit({"phase": "lineage_gather_vs_plain", "cases": n_cases, "max_abs_err": gather_err,
-          "tolerance": 0})
+    edge_cases, edge_err, gather_geometries = gather_sweep(lineage_gather_cuda, gen, dev)
+    torch.cuda.synchronize()
+    gather_err = max(gather_err, edge_err)
+    check(max(g.ctas for g in gather_geometries) > 100,
+          f"gather edge geometries {sorted(gather_geometries)}")
+    emit({"phase": "lineage_gather_vs_plain", "cases": n_cases + edge_cases,
+          "max_abs_err": gather_err, "tolerance": 0, "edge_cases": edge_cases,
+          "edge_geometries": sorted(list(g) for g in gather_geometries)})
 
     # -- 4. the record-level main path on the card: the walk --------------------
     rng = np.random.default_rng(SEED)
@@ -1028,79 +1273,51 @@ def main() -> int:
                                  for n, (a, b) in compositions.items()},
           "composition_max_abs_err": 0, "tolerance": 0})
 
-    # -- 7. the per-hop baseline against the fused walk on the Compas chains ---
+    # -- 7. the per-hop baseline against the fused walk on the Compas and
+    # Census chains: byte-equal in K x 3 launches (bitmatmul, bitset_rank,
+    # lineage_gather) against 1, and the rank and gather kernels on exactly
+    # the inputs each hop of both chains gives them (as
+    # ops.batched_walk_unfused builds them), each against its plain version
+    # and each gathered table against the set bits of its frontier
+    def baseline_chains(name):
+        i, s_, t_ = indexes[name]
+        tensors = [op.tensor for op in i.ops]
+        return {"q1": (ref.pack_bits(mask_stack(queries[name]["q1"], i.datasets[s_].n_rows)),
+                       [t.bitplane_fwd(0) for t in tensors]),
+                "q2": (ref.pack_bits(mask_stack(queries[name]["q2"], i.datasets[t_].n_rows)),
+                       [t.bitplane_bwd(0) for t in reversed(tensors)])}
+
     ci_idx, csrc, csink = indexes["compas"]
     chain = [op.tensor for op in ci_idx.ops]
-    compas_fwd = [t.bitplane_fwd(0) for t in chain]
-    compas_bwd = [t.bitplane_bwd(0) for t in reversed(chain)]
-    q1_mask = ref.pack_bits(mask_stack(queries["compas"]["q1"], ci_idx.datasets[csrc].n_rows))
-    q2_mask = ref.pack_bits(mask_stack(queries["compas"]["q2"], ci_idx.datasets[csink].n_rows))
-    k_hops = len(chain)
-    ops.reset_launch_counts()
-    unfused = {q: ops.batched_walk_unfused(mask, planes)
-               for q, mask, planes in (("q1", q1_mask, compas_fwd), ("q2", q2_mask, compas_bwd))}
-    torch.cuda.synchronize()
-    unfused_counts = ops.launch_counts()
-    check(unfused_counts == {"bitmatmul": 2 * k_hops, "bitset_rank": 2 * k_hops,
-                             "lineage_gather": 2 * k_hops},
-          f"unfused launches {unfused_counts}, expected {k_hops} x 3 per chain")
-    ops.reset_launch_counts()
-    fused = {q: ops.batched_walk(mask, planes)
-             for q, mask, planes in (("q1", q1_mask, compas_fwd), ("q2", q2_mask, compas_bwd))}
-    torch.cuda.synchronize()
-    fused_counts = ops.launch_counts()
-    check(fused_counts == {"batched_walk": 2}, f"fused launches {fused_counts}, expected 1 per chain")
-    for q in ("q1", "q2"):
-        check(torch.equal(unfused[q][0], fused[q][0]) and torch.equal(unfused[q][1], fused[q][1]),
-              f"Compas {q}: unfused != fused")
-
-    # the baseline's rank and gather kernels on exactly the inputs each hop of
-    # both chains gives them (as ops.batched_walk_unfused builds them): each
-    # against its plain version, and each gathered table against the set
-    # bits of its frontier
-    def hop_inputs(mask, planes):
-        cur = mask
-        for plane in planes:
-            cur = ref.bitmatmul_ref(cur, plane)
-            fw = cur.shape[1]
-            flat = cur.reshape(-1)
-            ends = torch.arange(1, B + 1, dtype=torch.int32, device=dev) * (fw * 32) - 1
-            counts = torch.diff(ref.bitset_rank_ref(flat, ends),
-                                prepend=torch.zeros(1, dtype=torch.int32, device=dev))
-            rp = torch.zeros(B + 1, dtype=torch.int32, device=dev)
-            rp[1:] = torch.cumsum(counts, 0)
-            rows, col = torch.nonzero(ref.unpack_bits(cur, fw * 32), as_tuple=True)
-            md = max(int(counts.max()), 1)
-            table = torch.full((B, md), -1, dtype=torch.int32, device=dev)
-            table[rows, torch.arange(rows.numel(), device=dev) - rp[rows].to(torch.int64)] = \
-                col.to(torch.int32)
-            yield {"flat": flat, "ends": ends, "rp": rp, "col": col.to(torch.int32),
-                   "md": md, "table": table}
-
-    qs = torch.arange(B, dtype=torch.int32, device=dev)
-    hops = {q: list(hop_inputs(mask, planes))
-            for q, mask, planes in (("q1", q1_mask, compas_fwd), ("q2", q2_mask, compas_bwd))}
+    compas_chains = baseline_chains("compas")
+    (q1_mask, compas_fwd), (q2_mask, compas_bwd) = compas_chains["q1"], compas_chains["q2"]
+    baseline = {}
+    unfused_counts = {}
+    hops = {}
     real_rank_err = real_gather_err = 0
-    for q, per_hop in hops.items():
-        for j, h in enumerate(per_hop):
-            err = int((bitset_rank_cuda(h["flat"], h["ends"])
-                       - ref.bitset_rank_ref(h["flat"], h["ends"])).abs().max())
-            check(err == 0, f"bitset_rank != plain at Compas {q} hop {j}")
-            real_rank_err = max(real_rank_err, err)
-            got = lineage_gather_cuda(qs, h["rp"], h["col"], h["md"])
-            err = int((got - ref.lineage_gather_ref(qs, h["rp"], h["col"], max_deg=h["md"]))
-                      .abs().max())
-            check(err == 0, f"lineage_gather != plain at Compas {q} hop {j}")
-            check(torch.equal(got, h["table"]), f"lineage_gather table != frontier at {q} hop {j}")
-            real_gather_err = max(real_gather_err, err)
-    torch.cuda.synchronize()
+    for name, chains in (("compas", compas_chains), ("census", baseline_chains("census"))):
+        counts, fused_counts, per_hop, r_err, g_err = per_hop_baseline(
+            name, chains, dev, bitset_rank_cuda, lineage_gather_cuda)
+        for k, n in counts.items():
+            unfused_counts[k] = unfused_counts.get(k, 0) + n
+        hops[name] = per_hop
+        real_rank_err = max(real_rank_err, r_err)
+        real_gather_err = max(real_gather_err, g_err)
+        baseline[name] = {
+            "hops_per_chain": {q: len(planes) for q, (_, planes) in chains.items()},
+            "unfused_launch_counts": counts, "fused_launch_counts": fused_counts,
+            "per_hop_shapes": {q: [{"W": h["flat"].numel(), "nnz": h["col"].numel(),
+                                    "max_deg": h["md"]} for h in hs]
+                               for q, hs in per_hop.items()}}
+        del chains
+    census_q2_hop0 = hops["census"]["q2"][0]
+    hops = hops["compas"]
+    qs = torch.arange(B, dtype=torch.int32, device=dev)
     rank_err = max(rank_err, real_rank_err)
     gather_err = max(gather_err, real_gather_err)
-    emit({"phase": "unfused_vs_fused", "hops": k_hops, "unfused_launch_counts": unfused_counts,
-          "fused_launch_counts": fused_counts, "byte_equal": True,
+    emit({"phase": "unfused_vs_fused", "configurations": baseline, "byte_equal": True,
+          "unfused_launch_counts": unfused_counts,
           "per_hop_rank_max_abs_err": real_rank_err, "per_hop_gather_max_abs_err": real_gather_err,
-          "per_hop_shapes": {q: [{"W": h["flat"].numel(), "nnz": h["col"].numel(), "max_deg": h["md"]}
-                                 for h in per_hop] for q, per_hop in hops.items()},
           "tolerance": 0})
 
     # the fused kernel against its plain version on the real Compas chain and
@@ -1720,36 +1937,61 @@ def main() -> int:
     }
     del compositions
 
-    # bitset_rank and lineage_gather on the inputs of the unfused Compas Q2
-    # chain's first hop (checked against their plain versions in phase 7)
+    # bitset_rank and lineage_gather at three shapes each: (a) the unfused
+    # Compas Q2 chain's first hop and (b) the unfused Census Q2 chain's
+    # first hop, both checked against their plain versions in phase 7, and
+    # (c) TPC-DI SF20: the rank over the 64-probe Q2 frontier at the join's
+    # left input, packed as the per-hop baseline packs it (W = 64 x 75,344
+    # words), and the gather of every row of the join's out -> in CSR, in
+    # order (max_deg 1).  The SF20 inputs are first held to their plain
+    # versions exactly, then copied until the copies exceed the 50 MB L2,
+    # and the timed calls rotate among the copies: a cold cache, as a
+    # caller meets it.
+    ji, jsrc, jsink = indexes["tpcdi_sf20"]
+    join_t, filter_t = ji.ops[0].tensor, ji.ops[1].tensor
+    left = join_t.backward_mask_batch(0, filter_t.backward_mask_batch(
+        0, mask_stack(queries["tpcdi_sf20"]["q2"], ji.datasets[jsink].n_rows)))
+    check(tuple(left.shape) == (B, ji.datasets[jsrc].n_rows), f"SF20 frontier {tuple(left.shape)}")
+    for b, rows in enumerate(answers["tpcdi_sf20"][1]):
+        check(torch.equal(torch.nonzero(left[b]).reshape(-1), rows.to(torch.int64)),
+              f"SF20 Q2 frontier row {b} != the walk's answer")
+    frontier = ref.pack_bits(left)
+    sf20_words = frontier.reshape(-1)
+    sf20_ends = torch.arange(1, B + 1, dtype=torch.int32, device=dev) * (frontier.shape[1] * 32) - 1
+    got = bitset_rank_cuda(sf20_words, sf20_ends)
+    sf20_rank_err = int((got - ref.bitset_rank_ref(sf20_words, sf20_ends)).abs().max())
+    check(sf20_rank_err == 0, "bitset_rank != plain at the SF20 frontier")
+    check(torch.equal(torch.diff(got, prepend=got.new_zeros(1)), left.sum(dim=1).to(torch.int32)),
+          "SF20 rank differences != the probes' frontier sizes")
+    jcsr = join_t.bwd(0)
+    sf20_queries = torch.arange(jcsr.n_rows, dtype=torch.int32, device=dev)
+    check(bool((torch.diff(jcsr.row_ptr) == 1).all()), "the SF20 join's out -> in CSR is not degree 1")
+    got = lineage_gather_cuda(sf20_queries, jcsr.row_ptr, jcsr.col_idx, 1)
+    sf20_gather_err = int((got - ref.lineage_gather_ref(sf20_queries, jcsr.row_ptr, jcsr.col_idx,
+                                                        max_deg=1)).abs().max())
+    check(sf20_gather_err == 0 and torch.equal(got[:, 0], jcsr.col_idx),
+          "lineage_gather != plain on the SF20 join's out -> in CSR")
+    torch.cuda.synchronize()
+    rank_err = max(rank_err, sf20_rank_err)
+    gather_err = max(gather_err, sf20_gather_err)
+    rank_copies = [(sf20_words.clone(), sf20_ends.clone()) for _ in range(8)]
+    gather_copies = [(sf20_queries.clone(), jcsr.row_ptr.clone(), jcsr.col_idx.clone())
+                     for _ in range(5)]
+    del left, frontier, got
+    c0 = census_q2_hop0
     h = hops["q2"][0]
-    flat, ends, rp, col, md = h["flat"], h["ends"], h["rp"], h["col"], h["md"]
-    counts = torch.diff(rp)
-    rank_bytes = (flat.numel() + 2 * B) * 4
-    rank_ops = flat.numel() + B
-    rank_row = {
-        "shape": {"W": flat.numel(), "Q": B},
-        "ms": device_ms(lambda: bitset_rank_cuda(flat, ends)),
-        "host_paced_ms": event_ms(lambda: bitset_rank_cuda(flat, ends)),
-        "plain_ms": device_ms(lambda: ref.bitset_rank_ref(flat, ends), reps=5),
-        "library_ms": None,
-        "bytes_ms": rank_bytes / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": rank_ops / POPC_PER_S * 1e3,
+    rank_rows = {
+        "compas_q2_hop0": rank_times([(h["flat"], h["ends"])]),
+        "census_q2_hop0": rank_times([(c0["flat"], c0["ends"])]),
+        "tpcdi_sf20_q2_join": rank_times(rank_copies),
     }
-    rank_row["bound_ms"] = max(rank_row["bytes_ms"], rank_row["ops_ms"])
-    rank_row["bound_by"] = "bytes" if rank_row["bytes_ms"] >= rank_row["ops_ms"] else "operations"
-    gather_bytes = (B + (B + 1) + int(counts.clamp(max=md).sum()) + B * md) * 4
-    gather_row = {
-        "shape": {"Q": B, "R": B, "nnz": col.numel(), "max_deg": md},
-        "ms": device_ms(lambda: lineage_gather_cuda(qs, rp, col, md)),
-        "host_paced_ms": event_ms(lambda: lineage_gather_cuda(qs, rp, col, md)),
-        "plain_ms": device_ms(lambda: ref.lineage_gather_ref(qs, rp, col, max_deg=md), reps=20),
-        "library_ms": None,
-        "bytes_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": 0.0,
+    gather_rows = {
+        "compas_q2_hop0": gather_times([(qs, h["rp"], h["col"])], h["md"], plain_reps=20),
+        "census_q2_hop0": gather_times([(qs, c0["rp"], c0["col"])], c0["md"], plain_reps=20),
+        "tpcdi_sf20_join_bwd": gather_times(gather_copies, 1),
     }
-    gather_row["bound_ms"] = gather_row["bytes_ms"]
-    gather_row["bound_by"] = "bytes"
+    del rank_copies, gather_copies
+    rank_row, gather_row = rank_rows["compas_q2_hop0"], gather_rows["compas_q2_hop0"]
 
     walk_ms = device_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
     walk_host_paced_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
@@ -1822,7 +2064,7 @@ def main() -> int:
               "all_planes_bytes": sum(p.numel() * 4 for p in compas_bwd)},
           "bitmatmul": bm_rows,
           "bitmatmul_library": "one torch.matmul of the unpacked 0/1 float16 operands",
-          "bitset_rank": rank_row, "lineage_gather": gather_row,
+          "bitset_rank": rank_rows, "lineage_gather": gather_rows,
           "rows_per_probe": scaling, "census_walk_1pct_ms": census_walk_ms,
           "no_library": "neither bitset_rank nor lineage_gather has a one-call PyTorch "
                         "counterpart"})
@@ -1855,6 +2097,19 @@ def main() -> int:
           "seconds": time.perf_counter() - t_start})
 
     bm = bm_rows["compas_probe"]
+
+    def user_path_launches(k):
+        return {"per_hop_baseline": unfused_counts.get(k, 0), "walk": main_counts.get(k, 0),
+                "hopcache_default": default_counts.get(k, 0),
+                "hopcache_bitplane": bitplane_counts.get(k, 0),
+                "attribute": attr_counts.get(k, 0), "spill_hopcache": spill_hc_counts.get(k, 0),
+                "federation": fed_counts.get(k, 0)}
+
+    def by_shape(rows):
+        return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "share_of_bound", "launches_per_call")}
+                for name, r in rows.items()}
+
     emit({"kernels": [
         {"name": "batched_walk", "route": "cuda", "source": "src/repro_torch/csrc/batched_walk.cu",
          "replaces": "src/repro/kernels/batched_walk.py:44",
@@ -1877,16 +2132,22 @@ def main() -> int:
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
          "replaces": "src/repro/kernels/bitset_rank.py:27",
          "launches": unfused_counts.get("bitset_rank", 0), "max_abs_err": rank_err,
+         "launches_by_path": user_path_launches("bitset_rank"),
          "ms": rank_row["ms"], "plain_ms": rank_row["plain_ms"], "bound_ms": rank_row["bound_ms"],
-         "bound_by": rank_row["bound_by"], "library_ms": None},
+         "bound_by": rank_row["bound_by"], "library_ms": None,
+         "by_shape": by_shape(rank_rows)},
         {"name": "lineage_gather", "route": "cuda",
          "source": "src/repro_torch/csrc/lineage_gather.cu",
          "replaces": "src/repro/kernels/lineage_gather.py:34",
          "launches": unfused_counts.get("lineage_gather", 0), "max_abs_err": gather_err,
+         "launches_by_path": user_path_launches("lineage_gather"),
          "ms": gather_row["ms"], "plain_ms": gather_row["plain_ms"],
          "bound_ms": gather_row["bound_ms"], "bound_by": gather_row["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "by_shape": by_shape(gather_rows)},
     ]})
+    for k in ("bitset_rank", "lineage_gather"):
+        user = {p: n for p, n in user_path_launches(k).items() if p != "per_hop_baseline"}
+        check(not any(user.values()), f"{k} launched on a user path: {user}")
     for k in ("batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"):
         n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")

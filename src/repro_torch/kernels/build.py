@@ -112,6 +112,8 @@ def check_operands(name: str, tensors, ndims) -> torch.device:
     compute capability (9, 0) and that every tensor lies on it, is int32,
     contiguous and of the dimension given in ``ndims``."""
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel runs on a CUDA card; its operands lie on {dev}")
     if torch.cuda.get_device_capability(dev) < (9, 0):
         raise RuntimeError(
             f"{name} kernel is built for sm_90a; {torch.cuda.get_device_name(dev)} "
