@@ -78,7 +78,26 @@ PyTorch built for CUDA.  It
    ``apply_invalidations`` drops its stitched relation and spilled
    hop-cache payload once, and ``whatif_replay`` of 8 rows over a
    100,000-row pipeline equals the full re-run (rtol = atol = 1e-5) and
-   leaves the recorded tables bit-identical;
+   leaves the recorded tables bit-identical; then (``chapman``) German,
+   Compas, Census and the TPC-DI join at scale factors 3, 5 and 9, each
+   captured once into an index and a ``ChapmanIndex`` through the record
+   hook: the Chapman records equal the CPU run's byte for byte on German,
+   Compas and SF3, 64 scans each way equal the index's Q1/Q2, and the
+   bytes of both stores (Table IX), the capture's device bytes, capture
+   seconds and scan against query ms are printed; then (``serving_tier``)
+   8 client threads submit 512 mixed single-probe Q1/Q2/Q4 plans through
+   a ``ServingTier`` over the Compas and Census walk sessions, Census's
+   bitplane hop-cache and the federated Compas catalog, at (max_batch,
+   max_wait_ms) (1, 0) and (64, 2): every answer equals ``session.run``'s,
+   the Compas tier's ``batched_walk`` launches equal its ``run_many``
+   lists replayed and, fused, are fewer than the per-request loop's; a
+   ``BoundaryHandle`` tenant is denied an out-of-scope plan and a full
+   queue sheds, then recovers; p50/p99 latency and requests per second
+   against the per-request loop are printed; then (``sharded``) Compas,
+   Census and TPC-DI SF20 viewed as ``ShardedProvenanceIndex`` at 2, 4 and
+   8 shards: B = 64 Q1/Q2 on the view's walk and default sessions and its
+   ``ShardedComposedIndex`` equal the merged index's, and Census's catalog
+   of shard members at 2 shards answers so cold and on its stitched route;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -756,6 +775,437 @@ def federation_run(cat, src, sink, q, members: str, how: bool):
     if cat.device.type == "cuda":
         torch.cuda.synchronize()
     return got, ops.launch_counts(), seg
+
+
+# -- the Chapman baseline, the serving tier and the sharded view (7g-7i) --------
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def settled_bytes(device) -> tuple:
+    """``device_bytes`` after the garbage collector and the card are idle."""
+    import gc
+
+    gc.collect()
+    sync(device)
+    return device_bytes(device)
+
+
+def chapman_capture(name, device):
+    """Capture configuration ``name`` (a use case, or ``tpcdi_sf<k>``: the
+    TPC-DI join at scale factor k) ONCE into a fresh index and, through the
+    index's record hook, into a ChapmanIndex.  Returns (index, source ids,
+    sink, chapman, chapman capture s, index capture s); the index's time is
+    the whole capture less the hook's, so it includes running the ops."""
+    from repro_torch.core.chapman import ChapmanIndex
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.dataprep.tracked import track
+
+    idx = ProvenanceIndex(f"{name}_chapman", device=device)
+    ch = ChapmanIndex()
+    spent = [0.0]
+
+    def hook(input_ids, output_id, out_table, info, input_tables):
+        sync(device)
+        t = time.perf_counter()
+        ch.capture(input_ids, input_tables, output_id, out_table, info)
+        sync(device)
+        spent[0] += time.perf_counter() - t
+
+    if name in U.USECASES:
+        make, run = U.USECASES[name]
+        table = make(device=device)
+    else:
+        left, right = U.make_tpcdi_join_inputs(int(name.split("_sf")[1]), device=device)
+    idx.add_record_hook(hook)
+    sync(device)
+    t = time.perf_counter()
+    if name in U.USECASES:
+        sink = run(idx, table).dataset_id
+        srcs = [idx.sources()[0]]
+    else:
+        sink = track(left, idx, "trade").join(track(right, idx, "security"), on="key",
+                                               how="inner").mark_sink().dataset_id
+        srcs = ["trade", "security"]
+    sync(device)
+    total = time.perf_counter() - t
+    idx.remove_record_hook(hook)
+    return idx, srcs, sink, ch, spent[0], total - spent[0]
+
+
+def chapman_phase(dev, configs, cpu_configs, rng):
+    """Table IX and Table XI on the card: each configuration captured once
+    into both stores; bytes, the capture's device bytes and Chapman's share
+    of them, capture seconds, and Chapman's O(T) scans against the index's
+    Q1/Q2 on B probes each way, answer for answer (a join's scan merges its
+    two inputs, so it is held to the union of both inputs' answers).  On
+    ``cpu_configs`` the records equal the port's CPU run byte for byte."""
+    from repro_torch.provenance import prov
+
+    def union(per_src):
+        return [torch.unique(torch.cat(parts)) for parts in zip(*per_src)]
+
+    out = {}
+    for name in configs:
+        torch.cuda.empty_cache()
+        before = settled_bytes(dev)
+        idx, srcs, sink, ch, ch_s, idx_s = chapman_capture(name, dev)
+        after = settled_bytes(dev)
+        index_bytes = idx.prov_nbytes()            # before any query builds a mirror
+        row = {
+            "ops": len(ch.cells), "sink_rows": idx.datasets[sink].n_rows,
+            "index_bytes": index_bytes, "chapman_records_bytes": ch.prov_nbytes(),
+            "chapman_frames_bytes": ch.frames_nbytes(), "chapman_bytes": ch.total_nbytes(),
+            "ratio": ch.total_nbytes() / index_bytes,
+            "records": sum(int(c.records.shape[0]) for c in ch.cells),
+            "capture_s": {"index": idx_s, "chapman": ch_s},
+            "capture_device_bytes": [a - b for a, b in zip(after, before)],
+        }
+        if name in cpu_configs:
+            c_idx, _, _, c_ch, _, _ = chapman_capture(name, "cpu")
+            check(len(c_ch.cells) == len(ch.cells) and all(
+                g.records.dtype == torch.int64 and torch.equal(g.records.cpu(), w.records)
+                for g, w in zip(ch.cells, c_ch.cells)), f"{name}: Chapman records card != CPU")
+            check((ch.prov_nbytes(), ch.frames_nbytes()) == (c_ch.prov_nbytes(),
+                                                             c_ch.frames_nbytes()),
+                  f"{name}: Chapman bytes card != CPU")
+            check(c_idx.prov_nbytes() == index_bytes, f"{name}: index bytes card != CPU")
+            row["records_equal_cpu"] = True
+            del c_idx, c_ch
+        ops_seq = list(range(len(ch.cells)))
+        n_src = idx.datasets[srcs[0]].n_rows
+        n_sink = idx.datasets[sink].n_rows
+        q1 = [sorted(set(rng.integers(0, n_src, size=8).tolist())) for _ in range(B)]
+        q2 = [sorted(set(rng.integers(0, n_sink, size=8).tolist())) for _ in range(B)]
+
+        def index_q1():
+            return union([prov(idx).source(s).rows_batch(q1).forward().to(sink).run()
+                          for s in srcs])
+
+        def index_q2():
+            return union([prov(idx).source(sink).rows_batch(q2).backward().to(s).run()
+                          for s in srcs])
+
+        def scan_q1():
+            return [ch.forward_rows(ops_seq, p) for p in q1]
+
+        def scan_q2():
+            return [ch.backward_rows(ops_seq, p) for p in q2]
+
+        for what, got, want in (("Q1", scan_q1(), index_q1()), ("Q2", scan_q2(), index_q2())):
+            check(len(got) == len(want) == B, f"{name} {what}: batch size")
+            for g, w in zip(got, want):
+                check(g.dtype == torch.int64 and torch.equal(g, w.to(torch.int64)),
+                      f"{name} {what}: Chapman scan != index")
+        row["scan_ms"] = {"q1": host_ms(scan_q1, reps=3), "q2": host_ms(scan_q2, reps=3)}
+        row["index_ms"] = {"q1": host_ms(index_q1), "q2": host_ms(index_q2)}
+        # the Chapman store's device bytes: what deleting it frees (it owns
+        # its records and frame copies, nothing else does)
+        total = ch.total_nbytes()
+        before_free = settled_bytes(dev)
+        del ch
+        freed = [a - b for a, b in zip(before_free, settled_bytes(dev))]
+        check(freed[1] >= total, f"{name}: freeing Chapman released {freed[1]} < {total} bytes")
+        row["chapman_device_bytes"] = freed
+        row["index_and_tables_device_bytes"] = [c - f for c, f in
+                                                zip(row["capture_device_bytes"], freed)]
+        out[name] = row
+        del idx
+    return out
+
+
+class RecordingBackend:
+    """A thin backend: every plan list the tier passes to ``run_many`` is
+    recorded, then answered by the session (its device too)."""
+
+    def __init__(self, session, gate=None):
+        self.session = session
+        self.device = session.device
+        self.lists = []
+        self.gate = gate
+
+    def run_many(self, plans):
+        if self.gate is not None:
+            self.gate.wait(60)
+        self.lists.append(list(plans))
+        return self.session.run_many(plans)
+
+
+def mixed_plans(holder, src, sink, n, rng):
+    """Single-probe Q1 / Q2 / Q4 plans in turn (three fuse keys)."""
+    from repro_torch.provenance import prov
+
+    n_src, n_sink = holder.datasets[src].n_rows, holder.datasets[sink].n_rows
+    n_cols = holder.datasets[sink].n_cols
+    plans = []
+    for i in range(n):
+        if i % 3 == 0:
+            plans.append(prov(holder).source(src).rows([int(rng.integers(n_src))])
+                         .forward().to(sink).plan())
+        elif i % 3 == 1:
+            plans.append(prov(holder).source(sink).rows([int(rng.integers(n_sink))])
+                         .backward().to(src).plan())
+        else:
+            plans.append(prov(holder).source(sink).rows([int(rng.integers(n_sink))])
+                         .attrs([int(rng.integers(n_cols))]).backward().to(src).plan())
+    return plans
+
+
+def drive_tier(tier, plans, n_clients):
+    """``n_clients`` threads submit ``plans`` (client c takes every
+    n_clients-th) with ``submit_nowait`` as fast as they can.  Returns the
+    answers, per-request latencies (submit -> future resolved) and the wall
+    time from the first submission to the last resolution."""
+    import threading
+
+    n = len(plans)
+    futs, sent, done = [None] * n, [0.0] * n, [None] * n
+
+    def client(c):
+        for i in range(c, n, n_clients):
+            sent[i] = time.perf_counter()
+            futs[i] = tier.submit_nowait(f"client{c}", plans[i])
+            futs[i].add_done_callback(lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+        check(not th.is_alive(), "a client thread hung")
+    answers = [f.result(timeout=120) for f in futs]
+    while any(d is None for d in done):
+        time.sleep(0.001)
+    lat = [d - s for d, s in zip(done, sent)]
+    return answers, lat, max(done) - t0
+
+
+def serving_phase(dev, backends, n_requests, n_clients, settings, rng, capability):
+    """The serving tier over each backend: the per-request loop (each
+    ``session.run`` synchronised) gives the reference answers, its time and
+    its launches; then for each (max_batch, max_wait_ms) the tier under
+    ``n_clients`` concurrent clients, every answer equal to the loop's.  On
+    ``capability``'s backend also: the launches of the tier equal those of
+    replaying the recorded ``run_many`` lists one at a time, a
+    ``BoundaryHandle`` tenant's out-of-scope plan is denied at admission, and
+    a full queue sheds with ``QueueFullError`` and then recovers."""
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.provenance import CapabilityError, prov
+    from repro_torch.serve import QueueFullError, ServingTier
+
+    out = {}
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    for name, (session, holder, src, sink) in backends.items():
+        plans = mixed_plans(holder, src, sink, n_requests, rng)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        ref = []
+        for p in plans:
+            ref.append(session.run(p))
+            sync(dev)
+        loop_s = time.perf_counter() - t
+        loop_counts = ops.launch_counts()
+        row = {"backend": type(session).__name__, "requests": n_requests,
+               "clients": n_clients, "loop_rps": n_requests / loop_s,
+               "loop_launches": loop_counts, "tier": {}}
+        for max_batch, max_wait_ms in settings:
+            rec = RecordingBackend(session)
+            ops.reset_launch_counts()
+            with ServingTier(rec, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                             max_queue=2 * n_requests) as tier:
+                got, lat, wall = drive_tier(tier, plans, n_clients)
+                stats = tier.stats()["tier"]
+            counts = ops.launch_counts()
+            add(counts)
+            for g, w in zip(got, ref):
+                check(torch.equal(g, w), f"{name} tier ({max_batch}, {max_wait_ms}): "
+                                         "answer != session.run")
+            cell = {"p50_ms": statistics.median(lat) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                    "rps": n_requests / wall, "speedup_vs_loop": (n_requests / wall) /
+                    row["loop_rps"], "launches": counts,
+                    "run_many_calls": len(rec.lists),
+                    "batches": stats["batches"], "max_batch_seen": stats["max_batch_seen"],
+                    "convoys": stats["convoys"]}
+            if name == capability:
+                ops.reset_launch_counts()
+                for lst in rec.lists:
+                    session.run_many(lst)
+                sync(dev)
+                replay = ops.launch_counts()
+                check(replay.get("batched_walk", 0) == counts.get("batched_walk", 0),
+                      f"{name}: tier launched batched_walk {counts} times, its run_many "
+                      f"lists replayed {replay}")
+                cell["replay_launches"] = replay
+            row["tier"][f"{max_batch},{max_wait_ms:g}"] = cell
+        if name == capability:
+            walk_loop = loop_counts.get("batched_walk", 0)
+            fused = row["tier"][f"{settings[-1][0]},{settings[-1][1]:g}"]
+            check(0 < fused["launches"].get("batched_walk", 0) < walk_loop,
+                  f"{name}: the fused tier launched {fused['launches']} against the "
+                  f"per-request loop's {walk_loop}")
+            idx = holder
+            handle = idx.export(idx.ops[1].output_id)      # src .. the filter's output
+            gate = threading.Event()
+            rec = RecordingBackend(session, gate)
+            tier = ServingTier(rec, max_batch=1, max_wait_ms=0.0, max_queue=4).start()
+            try:
+                tier.register_tenant("scoped", handle)
+                denied = tier.submit_nowait("scoped", plans[1])      # a plan from the sink
+                check(isinstance(denied.exception(timeout=30), CapabilityError),
+                      f"{name}: an out-of-scope plan was not denied")
+                inside = prov(idx).source(idx.ops[1].output_id).rows([0]).backward() \
+                    .to(src).plan()
+                held = [tier.submit_nowait("t", plans[i]) for i in range(4)]
+                t0 = time.perf_counter()
+                while tier.admission.pending < 4:
+                    check(time.perf_counter() - t0 < 30, "the queue never filled")
+                    time.sleep(0.001)
+                shed = tier.submit_nowait("t", plans[4])
+                check(isinstance(shed.exception(timeout=30), QueueFullError),
+                      f"{name}: a full queue did not shed")
+                gate.set()
+                for i, f in enumerate(held):
+                    check(torch.equal(f.result(timeout=60), ref[i]), f"{name}: held answer")
+                check(torch.equal(tier.submit_sync("t", plans[4], timeout=60), ref[4]),
+                      f"{name}: the tier did not recover after shedding")
+                check(torch.equal(tier.submit_sync("scoped", inside, timeout=60),
+                                  session.run(inside)), f"{name}: in-scope plan")
+                adm = tier.admission.stats()
+            finally:
+                gate.set()
+                tier.shutdown()
+            check(adm["capability_denied"] == 1 and adm["rejected_queue_full"] == 1,
+                  f"{name}: admission counters {adm}")
+            row["admission"] = {k: adm[k] for k in ("capability_denied",
+                                                     "rejected_queue_full", "admitted")}
+        out[name] = row
+    return out, counts_all
+
+
+def sharded_phase(dev, configs, answers, queries, shard_counts, merged_walk, catalog_at):
+    """Row-sharded views of the main path's indexes: B = 64 Q1/Q2 on the
+    view's walk session (the fused kernel where the chain takes it), its
+    default session and its ``ShardedComposedIndex`` equal the merged
+    index's answers; the view's slices, blocks and times against the base.
+    At ``catalog_at`` (configuration, shards) the catalog seam answers
+    cold and on its hot stitched route as the merged index does."""
+    from repro_torch.core.hopcache import ComposedIndex
+    from repro_torch.kernels import ops
+    from repro_torch.provenance import FederatedSession, QuerySession, ShardedProvenanceIndex, prov
+
+    def mask_stack(ps, n):
+        m = torch.zeros((len(ps), n), dtype=torch.bool, device=dev)
+        for b, p in enumerate(ps):
+            m[b, torch.tensor(p, dtype=torch.int64, device=dev)] = True
+        return m
+
+    def equal(got, want, what):
+        check(len(got) == len(want), f"{what}: batch size")
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), what)
+
+    def nonzeros(stack):
+        return [torch.nonzero(r).reshape(-1) for r in stack]
+
+    out = {}
+    counts_all = {}
+    for name, (idx, src, sink) in configs.items():
+        q1p, q2p = queries[name]["q1"], queries[name]["q2"]
+        a1, a2 = answers[name]
+        merged_rel = ComposedIndex(idx, memory_budget_bytes=8 << 30)
+        merged_rel.probe_forward(mask_stack(q1p[:1], idx.datasets[src].n_rows), src, sink)
+        rows = {"base_prov_bytes": idx.prov_nbytes(),
+                "merged_relation_bytes": merged_rel.stats()["bytes"],
+                "merged_walk_ms": {
+                    "q1": host_ms(lambda: prov(idx).source(src).rows_batch(q1p).forward()
+                                  .to(sink).run(merged_walk[name])),
+                    "q2": host_ms(lambda: prov(idx).source(sink).rows_batch(q2p).backward()
+                                  .to(src).run(merged_walk[name]))},
+                "merged_default_ms": {
+                    "q1": host_ms(lambda: prov(idx).source(src).rows_batch(q1p).forward()
+                                  .to(sink).run()),
+                    "q2": host_ms(lambda: prov(idx).source(sink).rows_batch(q2p).backward()
+                                  .to(src).run())},
+                "shards": {}}
+        del merged_rel
+        for n_shards in shard_counts:
+            before = settled_bytes(dev)
+            sv = ShardedProvenanceIndex(idx, n_shards)
+            slices = sum(s.nbytes(include_index=False) for op in sv.ops for s in op.tensor.shards)
+            view_alloc = [a - b for a, b in zip(settled_bytes(dev), before)]
+            walk = QuerySession(sv, use_hopcache=False, fused_walk=True)
+            default = sv.session()
+            ops.reset_launch_counts()
+            for sess, what in ((walk, "walk"), (default, "default")):
+                equal(prov(sv).source(src).rows_batch(q1p).forward().to(sink).run(sess), a1,
+                      f"{name} S={n_shards} {what} Q1 != merged")
+                equal(prov(sv).source(sink).rows_batch(q2p).backward().to(src).run(sess), a2,
+                      f"{name} S={n_shards} {what} Q2 != merged")
+            sc = sv.composed()
+            equal(nonzeros(sc.probe_forward(mask_stack(q1p, idx.datasets[src].n_rows), src,
+                                            sink)), a1, f"{name} S={n_shards} blocks Q1")
+            equal(nonzeros(sc.probe_backward(mask_stack(q2p, idx.datasets[sink].n_rows), sink,
+                                             src)), a2, f"{name} S={n_shards} blocks Q2")
+            sync(dev)
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                counts_all[k] = counts_all.get(k, 0) + v
+            entry = sc._entry(src, sink)
+            cell = {
+                "ranges": sv.ranges(sink), "blocks": [[b.kind, b.nbytes()] for b in entry.blocks],
+                "blocks_bytes": sc.stats()["bytes"], "slice_bytes": slices,
+                "view_alloc_device_bytes": view_alloc, "launches": counts,
+                "fused_walk": walk.counters["fused_walk"],
+                "default_strategy": default.explain(
+                    prov(sv).source(sink).rows_batch(q2p).backward().to(src).plan())["strategy"],
+                "walk_ms": {
+                    "q1": host_ms(lambda: prov(sv).source(src).rows_batch(q1p).forward()
+                                  .to(sink).run(walk)),
+                    "q2": host_ms(lambda: prov(sv).source(sink).rows_batch(q2p).backward()
+                                  .to(src).run(walk))},
+                "default_ms": {
+                    "q1": host_ms(lambda: prov(sv).source(src).rows_batch(q1p).forward()
+                                  .to(sink).run(default)),
+                    "q2": host_ms(lambda: prov(sv).source(sink).rows_batch(q2p).backward()
+                                  .to(src).run(default))},
+            }
+            if (name, n_shards) == catalog_at:
+                # cold: member segments only (a zero stitch budget); hot: the
+                # route stitched across the seam from its first call on
+                catalog = sv.as_catalog(src, sink)
+                fplan = prov(catalog).source(f"root/{src}").rows_batch(q1p).forward() \
+                    .to(f"gather/{sink}").plan()
+                bplan = prov(catalog).source(f"gather/{sink}").rows_batch(q2p).backward() \
+                    .to(f"root/{src}").plan()
+                cold = FederatedSession(catalog, cross_budget_bytes=0)
+                equal(cold.run(fplan), a1, f"{name} S={n_shards} catalog Q1 (cold)")
+                equal(cold.run(bplan), a2, f"{name} S={n_shards} catalog Q2 (cold)")
+                hot = FederatedSession(catalog, cross_budget_bytes=64 << 20, cross_min_demand=0)
+                for _ in range(3):
+                    equal(hot.run(fplan), a1, f"{name} S={n_shards} catalog Q1 (hot)")
+                    equal(hot.run(bplan), a2, f"{name} S={n_shards} catalog Q2 (hot)")
+                check(cold.counters["cross_composes"] == 0 and hot.counters["cross_composes"] >= 1
+                      and hot.counters["cross_probes"] >= 1,
+                      f"{name}: the catalog seam never turned hot: {hot.counters}")
+                cell["catalog"] = {"members": len(catalog.members),
+                                   "cold_counters": dict(cold.counters),
+                                   "hot_counters": dict(hot.counters)}
+                del catalog, cold, hot
+            rows["shards"][n_shards] = cell
+            del sv, walk, default, sc, entry
+        out[name] = rows
+    return out, counts_all
 
 
 def main() -> int:
@@ -1641,7 +2091,6 @@ def main() -> int:
 
     fed = {}
     fed_counts = {}
-    fed_worlds = {}
     for name, members in (("compas", "fused_walk"), ("census", "bitplane"),
                           ("tpcdi_sf20", "default"), ("diamond", "default")):
         t = time.perf_counter()
@@ -1736,14 +2185,14 @@ def main() -> int:
                 "q2": host_ms(lambda: prov(cat).source(fsink).rows_batch(qn["q2"]).backward()
                               .to(fsrc).run(hot))}})
         fed[name] = row
-        fed_worlds[name] = cat
+        if name == "compas":
+            fed_compas = (cat, fsrc, fsink)      # the serving tier's federated backend
         del got, want, seg, hot
     check(fed_counts.get("batched_walk", 0) > 0 and fed_counts.get("bitmatmul", 0) > 0,
           f"federation launches {fed_counts}")
     emit({"phase": "federation", "card": card, "B": B, "results": fed,
           "launch_counts": fed_counts,
           "equal_federated_vs_merged": sorted(fed), "equal_card_vs_cpu": ["compas"]})
-    del fed_worlds
 
     # -- 7f. impact: the erasure closure of 32 rows over a 9-op chain of
     # 50,000 rows against per-row forward queries; a federated erasure on
@@ -1867,6 +2316,52 @@ def main() -> int:
         "tolerance": {"rtol": 1e-5, "atol": 1e-5}}
     del wi, res, truth
     emit({"phase": "impact", "card": card, "results": impact})
+
+    # -- 7g. the Chapman baseline (Table IX, Table XI): German, Compas and
+    # Census at their Table VIII sizes and the TPC-DI join at scale factors
+    # 3, 5 and 9 (where the paper stops the baseline), each captured once
+    # into an index and a ChapmanIndex through the record hook; records equal
+    # the CPU run's on German, Compas and SF3; 64 probes each way scanned
+    # against the index's Q1/Q2
+    ops.reset_launch_counts()
+    chapman = chapman_phase(dev, ("german", "compas", "census", "tpcdi_sf3", "tpcdi_sf5",
+                                  "tpcdi_sf9"), ("german", "compas", "tpcdi_sf3"),
+                            np.random.default_rng(SEED + 7))
+    chapman_counts = ops.launch_counts()
+    emit({"phase": "chapman", "card": card, "B": B, "results": chapman,
+          "launch_counts": chapman_counts, "records_equal_cpu": ["german", "compas", "tpcdi_sf3"]})
+
+    # -- 7h. the serving tier: 8 client threads submit 512 mixed single-probe
+    # Q1/Q2/Q4 plans over the Compas and Census walk sessions (Compas on the
+    # fused kernel), Census's bitplane hop-cache and the federated Compas
+    # catalog of 7e, at (max_batch, max_wait_ms) (1, 0) and (64, 2); every
+    # answer equals session.run's; the tier's batched_walk launches on
+    # Compas equal its run_many lists replayed, and fused ones are fewer
+    # than the per-request loop's
+    fed_cat, fed_src, fed_sink = fed_compas
+    census_bitplane = QuerySession(indexes["census"][0], bitplane["census"])
+    serving_backends = {
+        "compas_walk": (walk_sessions["compas"], *indexes["compas"]),
+        "census_walk": (walk_sessions["census"], *indexes["census"]),
+        "census_bitplane": (census_bitplane, *indexes["census"]),
+        "compas_federated": (fed_cat.session(), fed_cat, fed_src, fed_sink),
+    }
+    serving, serving_counts = serving_phase(dev, serving_backends, 512, 8,
+                                            ((1, 0.0), (64, 2.0)),
+                                            np.random.default_rng(SEED + 8), "compas_walk")
+    check(census_bitplane.counters["hopcache"] > 0, "the bitplane backend never probed")
+    del fed_compas, fed_cat, serving_backends
+    emit({"phase": "serving_tier", "card": card, "results": serving,
+          "launch_counts": serving_counts})
+
+    # -- 7i. the row-sharded view: Compas (whose chain takes the fused
+    # kernel), Census and TPC-DI SF20 at 2, 4 and 8 shards; Census's seam
+    # into a catalog of shard members at 2 shards
+    sharded, sharded_counts = sharded_phase(
+        dev, {n: indexes[n] for n in ("compas", "census", "tpcdi_sf20")}, answers, queries,
+        (2, 4, 8), walk_sessions, ("census", 2))
+    emit({"phase": "sharded", "card": card, "B": B, "results": sharded,
+          "launch_counts": sharded_counts})
 
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
@@ -2103,7 +2598,8 @@ def main() -> int:
                 "hopcache_default": default_counts.get(k, 0),
                 "hopcache_bitplane": bitplane_counts.get(k, 0),
                 "attribute": attr_counts.get(k, 0), "spill_hopcache": spill_hc_counts.get(k, 0),
-                "federation": fed_counts.get(k, 0)}
+                "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
+                "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -2116,7 +2612,10 @@ def main() -> int:
          "launches": main_counts.get("batched_walk", 0), "max_abs_err": walk_err,
          "launches_by_path": {"walk": main_counts.get("batched_walk", 0),
                               "spill_tensors": spill_t_walks,
-                              "federation": fed_counts.get("batched_walk", 0)},
+                              "federation": fed_counts.get("batched_walk", 0),
+                              "chapman": chapman_counts.get("batched_walk", 0),
+                              "serving_tier": serving_counts.get("batched_walk", 0),
+                              "sharded": sharded_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -2126,7 +2625,10 @@ def main() -> int:
          "launches_by_path": {"hopcache_bitplane": bitplane_counts.get("bitmatmul", 0),
                               "attribute": attr_counts.get("bitmatmul", 0),
                               "spill_hopcache": spill_hc_counts.get("bitmatmul", 0),
-                              "federation": fed_counts.get("bitmatmul", 0)},
+                              "federation": fed_counts.get("bitmatmul", 0),
+                              "chapman": chapman_counts.get("bitmatmul", 0),
+                              "serving_tier": serving_counts.get("bitmatmul", 0),
+                              "sharded": sharded_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -2152,10 +2654,11 @@ def main() -> int:
         n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")
     for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts),
-                    ("federation", fed_counts)):
+                    ("federation", fed_counts), ("serving_tier", serving_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
-    check(fed_counts.get("batched_walk", 0) > 0,
-          "batched_walk was not launched on the federation path")
+    for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
+                    ("sharded", sharded_counts)):
+        check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -240,6 +240,20 @@ class RelStats:
             structured=tensor.slot_structure(slot) is not None,
         )
 
+    @staticmethod
+    def from_slot_range(tensor, slot: int, lo: int, hi: int) -> "RelStats":
+        """Stats of one op slot restricted to output rows ``[lo, hi)`` —
+        the SHARD-LOCAL relation a row-range-partitioned index composes.
+        Reads ``slot_nnz_range``, so a shard's backend choice never touches
+        the other shards' links."""
+        lo, hi = max(int(lo), 0), min(int(hi), int(tensor.n_out))
+        return RelStats(
+            rows=int(tensor.n_in[slot]),
+            cols=max(hi - lo, 0),
+            nnz=tensor.slot_nnz_range(slot, lo, hi),
+            structured=tensor.slot_structure(slot) is not None,
+        )
+
 
 def compose_est(a: RelStats, b: RelStats) -> RelStats:
     """Estimated stats of ``a ∘ b`` (boolean-semiring product).

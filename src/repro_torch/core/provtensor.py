@@ -43,6 +43,7 @@ __all__ = [
     "SlotIdentity",
     "SlotGather",
     "SlotRange",
+    "shard_ranges",
     "identity_tensor",
     "hreduce_tensor",
     "haugment_tensor",
@@ -417,6 +418,60 @@ class ProvTensor:
         cells = self.n_in[inp] * self.n_out
         return self.slot_nnz(inp) / cells if cells else 0.0
 
+    def slot_nnz_range(self, inp: int, lo: int, hi: int) -> int:
+        """nnz of the input-``inp`` relation restricted to output rows
+        ``[lo, hi)`` — the shard-local statistic the sharded hop-cache's
+        cost model reads.  Identity and range slots answer by interval
+        arithmetic, a gather by one count over its window."""
+        lo = max(int(lo), 0)
+        hi = min(int(hi), self.n_out)
+        if hi <= lo:
+            return 0
+        s = self.slot_structure(inp)
+        if isinstance(s, SlotIdentity):
+            return max(0, min(hi, s.n) - lo)
+        if isinstance(s, SlotRange):
+            return max(0, min(hi, s.start + s.length) - max(lo, s.start))
+        if isinstance(s, SlotGather):
+            return int(torch.count_nonzero(s.src[lo:hi] >= 0))
+        out = self._coo[:, 0]
+        inn = self._coo[:, 1 + inp]
+        return int(torch.count_nonzero((out >= lo) & (out < hi) & (inn >= 0)))
+
+    def slice_rows(self, lo: int, hi: int) -> "ProvTensor":
+        """The tensor restricted to output rows ``[lo, hi)``: ``n_out = hi -
+        lo`` over the SAME (global) input spaces, on the same device.
+
+        Structured slots stay structured: a gather slot slices its payload
+        (a view, no copy); an identity or range slot becomes a window
+        gather of ``hi - lo`` int32 (the only slot kind that allocates).
+        Explicit COO keeps the rows landing in the window (a copy),
+        out-column shifted to shard-local coordinates.  ``-1`` sentinels
+        inside the window survive."""
+        lo = max(int(lo), 0)
+        hi = min(int(hi), self.n_out)
+        if hi < lo:
+            raise ValueError(f"bad row range [{lo}, {hi})")
+        if self._slots is not None:
+            sliced = []
+            for s in self._slots:
+                if isinstance(s, SlotGather):
+                    g = s.src[lo:hi]
+                elif isinstance(s, SlotIdentity):
+                    g = torch.arange(lo, hi, dtype=torch.int32, device=self.device)
+                else:
+                    g = torch.full((hi - lo,), -1, dtype=torch.int32, device=self.device)
+                    a, b = max(lo, s.start), min(hi, s.start + s.length)
+                    if b > a:
+                        g[a - lo: b - lo] = torch.arange(a - s.start, b - s.start,
+                                                         dtype=torch.int32, device=self.device)
+                sliced.append(SlotGather(g))
+            return ProvTensor(n_out=hi - lo, n_in=self.n_in, slots=sliced, device=self.device)
+        out = self._coo[:, 0]
+        sub = self._coo[(out >= lo) & (out < hi)]
+        sub[:, 0] -= lo
+        return ProvTensor(n_out=hi - lo, n_in=self.n_in, coo=sub)
+
     def _slot_pairs(self, inp: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Valid (out, in) link pairs of one slot, from whichever regime."""
         g = self.slot_gather(inp)
@@ -663,6 +718,28 @@ def _as_row_indices(rows, n: int, device) -> torch.Tensor:
     if idx.numel() and (int(idx.min()) < -n or int(idx.max()) >= n):
         raise IndexError(f"probe row out of range for axis of size {n}")
     return torch.where(idx < 0, idx + n, idx)
+
+
+# ---------------------------------------------------------------------------
+# Row-range partitioning (the sharded index's layout contract)
+# ---------------------------------------------------------------------------
+def shard_ranges(n: int, n_shards: int) -> List[Tuple[int, int]]:
+    """Contiguous balanced row ranges ``[(lo, hi), ...]`` partitioning
+    ``[0, n)`` into ``n_shards`` pieces (``np.array_split`` semantics: the
+    first ``n % n_shards`` shards take one extra row).  Shard counts above
+    ``n`` yield empty trailing ranges."""
+    n = int(n)
+    n_shards = int(n_shards)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    base, extra = divmod(n, n_shards)
+    ranges: List[Tuple[int, int]] = []
+    lo = 0
+    for s in range(n_shards):
+        hi = lo + base + (1 if s < extra else 0)
+        ranges.append((lo, hi))
+        lo = hi
+    return ranges
 
 
 # ---------------------------------------------------------------------------

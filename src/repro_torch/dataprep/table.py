@@ -124,6 +124,13 @@ class Table:
     def nbytes(self) -> int:
         return sum(int(t.numel() * t.element_size()) for t in (self.data, self.null, self.index))
 
+    def row_tuple(self, i: int) -> tuple:
+        """Value identity of a row (nulls as NaN, zeros as ``-0.0``) — used
+        by set-semantics canonicalization and frame diffing."""
+        vals = self.data[i].clone()
+        vals[self.null[i]] = float("nan")
+        return tuple(-0.0 if v == 0 else v for v in vals.tolist())
+
     def duplicate_groups(self) -> torch.Tensor:
         """Set-semantics support (paper §III-C.a): ``groups[i]`` = smallest
         row index whose VALUES (bit patterns, nulls as NaN) equal row i's."""

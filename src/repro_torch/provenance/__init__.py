@@ -17,9 +17,13 @@
   it poisons, and a replay of only the provenance-related sink rows under a
   source perturbation.
 
+* :class:`ShardedProvenanceIndex` / :class:`ShardedComposedIndex` /
+  :class:`ShardedTensor` — a row-range-sharded view over one index (the
+  sequential per-shard engine), its per-shard hop-cache, and its seam into
+  a catalog of shard members.
+
 The legacy Table-VII free functions (``repro_torch.core.query.q1_forward``
-...) are thin deprecation shims over this package.  Sharding is a later
-slice (ROADMAP A10).
+...) are thin deprecation shims over this package.
 """
 from repro_torch.provenance.builder import ProvQuery, prov
 from repro_torch.provenance.catalog import (
@@ -41,6 +45,11 @@ from repro_torch.provenance.impact import (
 )
 from repro_torch.provenance.plan import AmbiguousProbeWarning, QueryPlan
 from repro_torch.provenance.session import QuerySession
+from repro_torch.provenance.sharded import (
+    ShardedComposedIndex,
+    ShardedProvenanceIndex,
+    ShardedTensor,
+)
 
 __all__ = [
     "prov",
@@ -61,4 +70,7 @@ __all__ = [
     "erasure_plan",
     "apply_invalidations",
     "whatif_replay",
+    "ShardedTensor",
+    "ShardedProvenanceIndex",
+    "ShardedComposedIndex",
 ]

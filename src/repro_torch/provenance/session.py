@@ -144,6 +144,11 @@ class QuerySession:
             "fused_plans": 0,
         }
 
+    @property
+    def device(self):
+        """The device the session's index, and every answer, lies on."""
+        return self.index.device
+
     # -- planning --------------------------------------------------------------
     def _plan_pairs(self, plan: QueryPlan) -> Optional[List[Tuple[str, str]]]:
         """EVERY (upstream, downstream) relation the hop-cache strategy would
