@@ -98,6 +98,23 @@ PyTorch built for CUDA.  It
    8 shards: B = 64 Q1/Q2 on the view's walk and default sessions and its
    ``ShardedComposedIndex`` equal the merged index's, and Census's catalog
    of shard members at 2 shards answers so cold and on its stitched route;
+   then (``lm_serving``) the LM serving path at full published width, the
+   weights random from the seed: OLMo-1B in float32, whose token-by-token
+   ``decode_step`` equals ``forward`` over 32 tokens (relative error under
+   2e-3), and the olmo and gemma3-1b smokes, whose float32 logits equal
+   the CPU port's (1e-4) with equal greedy tokens; then OLMo-1B in bf16
+   behind a ``ServeEngine`` whose upstream is a Compas prep index captured
+   on the card (its session on the fused walk): 64 prompts of 32 tokens
+   and 16 new tokens, recorded; the responses' lineage to the raw source
+   equals the prep walk's Q2 of each request's sink row and launches
+   ``batched_walk``, the erasure of 4 raw rows reaches exactly the
+   responses whose requests their Q1 reaches, and 512 single probes
+   through a ``ServingTier`` from 8 threads equal ``response_lineage``;
+   decode ms a step (median of the synchronised steps), tokens/s, the
+   weight-byte bound, the prompt pass, peak memory and the tier's p50/p99
+   are printed; then gemma3-1b in bf16 over 1,056 positions, where the
+   local layers' 1,024-slot ring buffer wraps: the last 16 decode logits
+   equal ``forward``'s (relative error under 5e-2);
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -1206,6 +1223,244 @@ def sharded_phase(dev, configs, answers, queries, shard_counts, merged_walk, cat
             del sv, walk, default, sc, entry
         out[name] = rows
     return out, counts_all
+
+
+# -- the LM serving path (phase 7j) ---------------------------------------------
+LM_FP32_REL = 2e-3    # decode against forward in float32 (tests/test_models.py's bound)
+LM_BF16_REL = 5e-2    # the same in bfloat16: max |decode - forward| over max |forward|
+LM_CPU_REL = 1e-4     # the card against the CPU, float32
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()) / (float(want.abs().max()) + 1e-9)
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.state_dict().values())
+
+
+def timed_decode(engine, dev):
+    """Wrap ``engine._decode`` so that every step is synchronised before and
+    after and its host-clock seconds are appended to the returned list;
+    ``del engine._decode`` restores the method."""
+    inner, seconds = engine._decode, []
+
+    def step(token, pos, cache):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = inner(token, pos, cache)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    engine._decode = step
+    return seconds
+
+
+def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
+    """``steps`` decode steps of ``engine`` (after one warm step) under
+    ``torch.profiler``: kernels and device-busy ms a step, the device's idle
+    share of an unprofiled ``step_ms`` step, and the host ops that take the
+    most self CPU time a step.  None where the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = engine.model.init_cache(engine.cfg, batch, s_max, dtype=engine.dtype, device=dev)
+    tok = torch.zeros(batch, dtype=torch.int64, device=dev)
+    engine._decode(tok, 0, cache)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for pos in range(1, steps + 1):
+            engine._decode(tok, pos, cache)
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"steps": steps, "kernels_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
+            "top_self_cpu": [{"op": e.key, "calls_per_step": e.count / steps,
+                              "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps}
+                             for e in host]}
+
+
+def lm_serving_phase(dev):
+    """The LM serving path at full published width.  (c) first: OLMo-1B in
+    float32, token-by-token ``decode_step`` against ``forward`` over 32
+    tokens, and the olmo and gemma3-1b smokes on the card against the CPU
+    (float32 logits, greedy tokens).  (a) OLMo-1B in bf16 behind a
+    ``ServeEngine`` whose upstream is a Compas prep index captured on the
+    card (its session on the fused walk; the engine's federated session
+    never stitches): 64 prompts of 32 tokens, 16 new
+    tokens, recorded; response lineage to the raw rows equals the prep
+    walk's Q2 of each request's sink row, with ``batched_walk`` launched;
+    the erasure of 4 raw rows reaches exactly the responses whose requests
+    Q1 reaches; 512 single probes through the tier from 8 threads equal
+    ``response_lineage``.  (b) gemma3-1b in bf16: 1,056 positions through
+    the engine's decode step (the local layers' 1,024-slot ring wraps)
+    against ``forward`` at the last 16.  Returns the results and the
+    launch counts of the lineage, erasure and tier calls."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as TL
+    from repro_torch.provenance import prov
+    from repro_torch.provenance.catalog import qualify
+    from repro_torch.serve import ServeEngine, ServingTier
+
+    out = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (c) OLMo-1B at full width in float32: decode equals forward
+    cfg = get_config("olmo-1b")
+    params, init_s = sync_time(TL.init_params, cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen, device=dev)
+    full = TL.forward(cfg, params, toks, dtype=torch.float32)
+    cache = TL.init_cache(cfg, 2, 32, dtype=torch.float32, device=dev)
+    dec = torch.stack([TL.decode_step(cfg, params, toks[:, i], i, cache, dtype=torch.float32)[0]
+                       for i in range(32)], dim=1)
+    fp32_rel = rel_err(dec[..., :cfg.vocab], full[..., :cfg.vocab])
+    check(bool(torch.isfinite(full).all()), "olmo-1b float32: non-finite logits")
+    check(fp32_rel < LM_FP32_REL, f"olmo-1b float32: decode != forward (rel {fp32_rel})")
+    del full, dec, cache
+    smokes = {}
+    for arch in ("olmo-1b", "gemma3-1b"):
+        scfg = get_smoke_config(arch)
+        p_cpu = TL.init_params(scfg, torch.Generator().manual_seed(SEED), "cpu")
+        p_dev = TL.cast_params(scfg, p_cpu, torch.float32, dev)
+        stoks = torch.from_numpy(np.random.default_rng(SEED).integers(0, scfg.vocab, (4, 16)))
+        err = rel_err(TL.forward(scfg, p_dev, stoks.to(dev), dtype=torch.float32).cpu(),
+                      TL.forward(scfg, p_cpu, stoks, dtype=torch.float32))
+        check(err < LM_CPU_REL, f"{arch} smoke: card logits != CPU (rel {err})")
+        prompts = np.random.default_rng(SEED).integers(1, scfg.vocab, (4, 8)).astype(np.int32)
+        tok = {d: ServeEngine(scfg, p_cpu, 16, dtype=torch.float32, device=d)
+               .generate(prompts, n_new=8).tokens for d in ("cpu", dev)}
+        check(np.array_equal(tok["cpu"], tok[dev]), f"{arch} smoke: greedy tokens card != CPU")
+        smokes[arch] = {"logits_rel_err": err, "tokens_equal": True}
+
+    # (a) OLMo-1B in bf16 behind the engine, upstream a Compas prep index
+    make, run = U.USECASES["compas"]
+    prep = ProvenanceIndex("prep", device=dev)
+    sink = run(prep, make(device=dev)).dataset_id
+    src = prep.sources()[0]
+    walk = prep.session(use_hopcache=False, fused_walk=True)   # before any query
+    engine = ServeEngine(cfg, params, max_seq=48, upstream=prep.export(sink), device=dev)
+    del params
+    # the cold route: no stitched cross relation (the default gate stitches
+    # a 64-probe route at once), so every probe crosses the boundary as
+    # member segments and the prep segment runs on its fused walk
+    engine.catalog.session(cross_budget_bytes=0)
+    n_params = sum(t.numel() for t in engine.params.state_dict().values())
+    rng = np.random.default_rng(SEED + 9)
+    engine.generate(rng.integers(1, cfg.vocab, (64, 4)).astype(np.int32), n_new=2)  # warm-up
+    prompts = rng.integers(1, cfg.vocab, (64, 32)).astype(np.int32)
+    request_ids = rng.integers(0, prep.datasets[sink].n_rows, 64)
+    steps = timed_decode(engine, dev)
+    t = time.perf_counter()
+    result = engine.generate(prompts, n_new=16, request_ids=request_ids, record_provenance=True)
+    generate_s = time.perf_counter() - t
+    del engine._decode
+    check(result.tokens.shape == (64, 16) and result.tokens.dtype == np.int32
+          and 0 <= int(result.tokens.min()) and int(result.tokens.max()) < cfg.vocab,
+          f"olmo-1b: tokens {result.tokens.shape} {result.tokens.dtype}")
+    gen_steps = steps[32:]
+    step_ms = statistics.median(gen_steps) * 1e3
+    bound_ms = weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # references, before the counts are zeroed: the prep walk's Q2 of each
+    # request's sink row and the Q1 of the rows to erase
+    q2 = prov(prep).source(sink).rows_batch([[int(r)] for r in request_ids]) \
+        .backward().to(src).run(walk)
+    erase = sorted({int(a[0]) for a in q2 if a.numel()})[:4]
+    check(len(erase) == 4, "fewer than 4 raw rows behind the requests")
+    reached = set(prov(prep).source(src).rows(erase).forward().to(sink).run(walk).tolist())
+    want_resp = [i for i, r in enumerate(request_ids.tolist()) if r in reached]
+    # the path: the batch, each response alone, the erasure and the tier
+    ops.reset_launch_counts()
+    got = engine.response_lineage_batch(result, [[i] for i in range(64)], upstream=src)
+    sync(dev)
+    lineage_counts = ops.launch_counts()
+    check(lineage_counts.get("batched_walk", 0) > 0,
+          f"the engine's lineage never launched batched_walk: {lineage_counts}")
+    per_row = [engine.response_lineage(result, rows=[i], upstream=src) for i in range(64)]
+    for i, (g, w) in enumerate(zip(got, q2)):
+        check(torch.equal(g, w), f"response {i}: lineage != the prep walk's Q2")
+        check(torch.equal(per_row[i], w), f"response {i}: response_lineage != Q2")
+    plan = engine.erasure_impact(erase, source=src)
+    by_ref = {i.ref: sorted(i.rows.tolist()) for i in plan.impacts}
+    resp_ref = qualify(engine._serve_name, result.response_dataset)
+    check(resp_ref == "serve/responses@0" and by_ref.get(resp_ref) == want_resp,
+          f"erasure reached {by_ref.get(resp_ref)}, Q1 reaches {want_resp}")
+    up = qualify(engine._upstream[0], src)
+    tier_rows = rng.integers(0, 64, 512)
+    plans = [prov(engine.catalog).source(resp_ref).rows([int(i)]).backward().to(up).plan()
+             for i in tier_rows]
+    with ServingTier(engine.as_backend(), max_batch=64, max_wait_ms=2.0,
+                     max_queue=1024) as tier:
+        answers, lat, wall = drive_tier(tier, plans, 8)
+        tier_stats = tier.stats()["tier"]
+    for i, a in zip(tier_rows, answers):
+        check(torch.equal(a, per_row[i]), f"tier answer for response {i} != response_lineage")
+    counts = ops.launch_counts()
+    olmo_profile = profile_decode(engine, dev, 64, 48, step_ms)
+    out["olmo_1b"] = {
+        "dtype": "bfloat16", "n_params": n_params, "weight_bytes": weight_bytes(engine.params),
+        "batch": 64, "prompt_len": 32, "n_new": 16, "init_s": init_s,
+        "decode_ms_per_step": step_ms, "decode_ms_per_step_min": min(gen_steps) * 1e3,
+        "decode_tokens_per_s": 64 / (step_ms / 1e3), "bound_ms": bound_ms,
+        "bound_by": "bytes", "prompt_pass_ms": sum(steps[:32]) * 1e3,
+        "generate_s": generate_s, "generate_tokens_per_s": 64 * 16 / generate_s,
+        "max_memory_allocated_bytes": peak,
+        "float32_decode_vs_forward_rel": fp32_rel,
+        "lineage": {"responses": 64, "upstream": up, "launches": lineage_counts,
+                    "federation_counters": dict(engine.federation.counters)},
+        "erasure": {"raw_rows": erase, "responses": want_resp,
+                    "affected": [i.ref for i in plan.impacts]},
+        "tier": {"requests": 512, "clients": 8, "p50_ms": statistics.median(lat) * 1e3,
+                 "p99_ms": float(np.percentile(lat, 99)) * 1e3, "rps": 512 / wall,
+                 "batches": tier_stats["batches"],
+                 "max_batch_seen": tier_stats["max_batch_seen"]},
+        "decode_profile": olmo_profile}
+    del engine, prep, walk, got, per_row, q2
+
+    # (b) gemma3-1b in bf16: 1,056 positions, the local layers' ring wraps
+    cfg = get_config("gemma3-1b")
+    params = TL.init_params(cfg, gen, dev)
+    engine = ServeEngine(cfg, params, max_seq=1056, device=dev)
+    del params
+    toks = torch.randint(0, cfg.vocab, (4, 1056), generator=gen, device=dev)
+    cache = engine.model.init_cache(cfg, 4, 1056, dtype=engine.dtype, device=dev)
+    local = [lc["k"].shape[1] for lc, s in zip(cache, cfg.layer_specs()) if s.mixer == "attn_local"]
+    check(local and set(local) == {cfg.window}, f"gemma3-1b local caches {set(local)}")
+    steps = timed_decode(engine, dev)
+    last = [engine._decode(toks[:, i], i, cache)[0] for i in range(1056)][-16:]
+    del engine._decode
+    full = TL.forward(cfg, engine.params, toks, dtype=engine.dtype)[:, -16:, :cfg.vocab]
+    last = [lg[:, :cfg.vocab] for lg in last]
+    bf16_rel = rel_err(torch.stack(last, dim=1), full)
+    check(bool(torch.isfinite(full).all()), "gemma3-1b: non-finite logits")
+    check(bf16_rel < LM_BF16_REL, f"gemma3-1b bf16: decode != forward (rel {bf16_rel})")
+    agree = float((torch.stack(last, dim=1).argmax(-1) == full.argmax(-1)).float().mean())
+    step_ms = statistics.median(steps[-16:]) * 1e3
+    out["gemma3_1b"] = {
+        "dtype": "bfloat16", "n_params": sum(t.numel() for t in engine.params.state_dict().values()),
+        "weight_bytes": weight_bytes(engine.params), "batch": 4, "positions": 1056,
+        "window": cfg.window, "decode_ms_per_step": step_ms,
+        "decode_tokens_per_s": 4 / (step_ms / 1e3),
+        "bound_ms": weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "decode_vs_forward_rel": bf16_rel, "argmax_agreement": agree,
+        "decode_profile": profile_decode(engine, dev, 4, 1056, step_ms),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+    out["smokes_card_vs_cpu"] = smokes
+    out["tolerances"] = {"float32_decode": LM_FP32_REL, "bfloat16_decode": LM_BF16_REL,
+                         "card_vs_cpu": LM_CPU_REL}
+    del engine, cache, full, last
+    torch.cuda.empty_cache()
+    return out, counts
 
 
 def main() -> int:
@@ -2363,6 +2618,16 @@ def main() -> int:
     emit({"phase": "sharded", "card": card, "B": B, "results": sharded,
           "launch_counts": sharded_counts})
 
+    # -- 7j. the LM serving path at full published width: OLMo-1B (float32
+    # decode against forward, then bf16 behind a ServeEngine whose upstream
+    # is a Compas prep index; lineage, erasure and the tier through the
+    # federation) and gemma3-1b (bf16, the ring buffer wrapping); the olmo
+    # and gemma3-1b smokes against the CPU
+    t = time.perf_counter()
+    lm_serving, lm_counts = lm_serving_phase(dev)
+    emit({"phase": "lm_serving", "card": card, "seconds": time.perf_counter() - t,
+          **lm_serving, "launch_counts": lm_counts})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -2599,7 +2864,8 @@ def main() -> int:
                 "hopcache_bitplane": bitplane_counts.get(k, 0),
                 "attribute": attr_counts.get(k, 0), "spill_hopcache": spill_hc_counts.get(k, 0),
                 "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
-                "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0)}
+                "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
+                "lm_serving": lm_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -2615,7 +2881,8 @@ def main() -> int:
                               "federation": fed_counts.get("batched_walk", 0),
                               "chapman": chapman_counts.get("batched_walk", 0),
                               "serving_tier": serving_counts.get("batched_walk", 0),
-                              "sharded": sharded_counts.get("batched_walk", 0)},
+                              "sharded": sharded_counts.get("batched_walk", 0),
+                              "lm_serving": lm_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -2628,7 +2895,8 @@ def main() -> int:
                               "federation": fed_counts.get("bitmatmul", 0),
                               "chapman": chapman_counts.get("bitmatmul", 0),
                               "serving_tier": serving_counts.get("bitmatmul", 0),
-                              "sharded": sharded_counts.get("bitmatmul", 0)},
+                              "sharded": sharded_counts.get("bitmatmul", 0),
+                              "lm_serving": lm_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -2657,7 +2925,7 @@ def main() -> int:
                     ("federation", fed_counts), ("serving_tier", serving_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
-                    ("sharded", sharded_counts)):
+                    ("sharded", sharded_counts), ("lm_serving", lm_counts)):
         check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

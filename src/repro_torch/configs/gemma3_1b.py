@@ -1,0 +1,6 @@
+"""Config for --arch gemma3-1b (exact assignment spec; see archs.py)."""
+from repro_torch.configs.archs import ARCHS, SMOKES
+
+ARCH_ID = "gemma3-1b"
+CONFIG = ARCHS[ARCH_ID]
+SMOKE = SMOKES[ARCH_ID]

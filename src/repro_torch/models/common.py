@@ -1,0 +1,314 @@
+"""Shared model components: norms, RoPE, GQA attention, gated MLP.
+
+The port of ``repro.models.common``.  The arithmetic is plain functions on
+tensors, taking ``(cfg, p, ...)`` as the reference package does; the
+weights live in small ``nn.Module``s whose parameter names are the
+reference's dict keys (``wq``, ``wk``, ``wv``, ``wo``, ``q_scale``, ``wi``,
+``wg``, ``scale``).  Parameters never require a gradient: this package
+serves, it does not train.
+
+Weights may be held in float32 and cast per matmul to the activations'
+dtype (``w.to(x.dtype)``, the reference's ``.astype(dt)``), or cast once up
+front (:func:`repro_torch.models.lm.cast_params`), which gives the same
+values and makes every per-matmul cast a no-op.  Norm scales always stay
+float32: the norms compute in float32.
+
+Attention serves three duties from one implementation:
+  * full sequence — causal (optionally sliding-window) attention, with
+    query chunking so the score matrix never exceeds (q_chunk x S) per head;
+  * prefill       — the same, returning the prompt's K/V;
+  * decode        — one new token against a cache, written in place; a
+    sliding-window layer whose cache is no longer than its window keeps it
+    as a ring buffer.
+The cross-attention of the encoder-decoder model is not ported yet
+(ROADMAP A13, whisper).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = [
+    "rmsnorm",
+    "nonparam_ln",
+    "norm_apply",
+    "rope",
+    "rope_angles",
+    "apply_rope",
+    "Norm",
+    "Attn",
+    "MLP",
+    "init_norm",
+    "init_attn",
+    "init_mlp",
+    "attn_forward",
+    "attn_prefill",
+    "attn_decode",
+    "mlp_forward",
+]
+
+NEG_INF = -1e30     # the reference's mask fill, applied to float32 scores
+Rot = Tuple[torch.Tensor, torch.Tensor]     # RoPE (cos, sin)
+
+
+def _param(shape, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), all in float32."""
+    return F.rms_norm(x.float(), x.shape[-1:], 1.0 + scale.float(), eps).to(x.dtype)
+
+
+def nonparam_ln(x: torch.Tensor, _scale=None, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias, in float32.  The
+    variance divides by N, as ``jnp.var`` does (``layer_norm``'s, unlike
+    ``torch.var``'s default)."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype)
+
+
+def norm_apply(cfg: ModelConfig, x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    if cfg.norm == "nonparam_ln":
+        return nonparam_ln(x)
+    return rmsnorm(x, scale)
+
+
+class Norm(nn.Module):
+    """``scale`` (float32, zero-initialised) for RMSNorm; no parameter at
+    all for the non-parametric LayerNorm."""
+
+    def __init__(self, cfg: ModelConfig, d: int, device=None) -> None:
+        super().__init__()
+        if cfg.norm == "nonparam_ln":
+            self.register_parameter("scale", None)
+        else:
+            self.scale = _param((d,), device)
+
+
+def init_norm(cfg: ModelConfig, d: int, device=None) -> Norm:
+    n = Norm(cfg, d, device)
+    if n.scale is not None:
+        n.scale.zero_()
+    return n
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_angles(positions: torch.Tensor, hd: int, theta: float) -> Rot:
+    """(cos, sin), each (..., S, 1, hd/2) float32, of positions (..., S):
+    computed once per forward or decode step and shared by every layer."""
+    half = hd // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * (math.log(theta) / half))
+    ang = positions[..., None].float() * freqs          # (..., S, half)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, rot: Rot) -> torch.Tensor:
+    """Rotate x (..., S, H, hd) by ``rope_angles``: the two concatenated
+    halves of the head dimension (not interleaved pairs), in float32."""
+    cos, sin = rot
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    return apply_rope(x, rope_angles(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; causal / sliding-window / bidirectional; cached decode)
+# ---------------------------------------------------------------------------
+class Attn(nn.Module):
+    """``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd), ``wo`` (H*hd, d), and with
+    QK-norm ``q_scale``/``k_scale`` (hd,)."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        self.wq = _param((d, h * hd), device)
+        self.wk = _param((d, kv * hd), device)
+        self.wv = _param((d, kv * hd), device)
+        self.wo = _param((h * hd, d), device)
+        if cfg.qk_norm:
+            self.q_scale = _param((hd,), device)
+            self.k_scale = _param((hd,), device)
+        else:
+            self.register_parameter("q_scale", None)
+            self.register_parameter("k_scale", None)
+
+
+def init_attn(cfg: ModelConfig, generator: torch.Generator, device=None) -> Attn:
+    """Standard normal weights scaled by 1/sqrt(d_model) (``wo`` too), QK
+    scales at zero: the reference's distributions, drawn from
+    ``generator`` (which lies on ``device``)."""
+    a = Attn(cfg, device)
+    s = 1.0 / math.sqrt(cfg.d_model)
+    for w in (a.wq, a.wk, a.wv, a.wo):
+        w.normal_(generator=generator).mul_(s)
+    if a.q_scale is not None:
+        a.q_scale.zero_()
+        a.k_scale.zero_()
+    return a
+
+
+def _project_qkv(cfg: ModelConfig, p: Attn, x: torch.Tensor, rot: Optional[Rot]):
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = x.dtype
+    q = (x @ p.wq.to(dt)).reshape(b, -1, h, hd)
+    k = (x @ p.wk.to(dt)).reshape(b, -1, kv, hd)
+    v = (x @ p.wv.to(dt)).reshape(b, -1, kv, hd)
+    if cfg.qk_norm and p.q_scale is not None:
+        q = rmsnorm(q, p.q_scale)
+        k = rmsnorm(k, p.k_scale)
+    if rot is not None:
+        q = apply_rope(q, rot)
+        k = apply_rope(k, rot)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); mask: (Sq, Sk) bool or None.
+    The scores are cast to float32 BEFORE the -1e30 fill (a bf16 fill would
+    overflow to -inf and a fully masked row would give NaNs); the softmax
+    runs in float32 and its probabilities are cast back."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(hd)
+    scores = scores.float()
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h * hd)
+
+
+def _make_mask(sq: int, sk: int, q_off: int, kind: str, window: int,
+               device) -> Optional[torch.Tensor]:
+    if kind == "bidir":
+        return None
+    qi = q_off + torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = kj <= qi
+    if kind == "local" and window > 0:
+        mask &= kj > qi - window
+    return mask
+
+
+def _attend(cfg: ModelConfig, q, k, v, kind: str, q_chunk: int) -> torch.Tensor:
+    """Full-sequence attention, q-chunked when ``q_chunk`` divides S."""
+    b, s = q.shape[:2]
+    if q_chunk and s > q_chunk and s % q_chunk == 0:
+        outs = [_sdpa(q[:, i:i + q_chunk], k, v,
+                      _make_mask(q_chunk, s, i, kind, cfg.window, q.device))
+                for i in range(0, s, q_chunk)]
+        return torch.cat(outs, dim=1)
+    return _sdpa(q, k, v, _make_mask(s, s, 0, kind, cfg.window, q.device))
+
+
+def attn_forward(cfg: ModelConfig, p: Attn, x: torch.Tensor, kind: str = "causal",
+                 q_chunk: int = 0, rot: Optional[Rot] = None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D); ``kind`` is causal | local | bidir."""
+    return attn_prefill(cfg, p, x, kind, q_chunk, rot)[0]
+
+
+def attn_prefill(cfg: ModelConfig, p: Attn, x: torch.Tensor, kind: str, q_chunk: int = 0,
+                 rot: Optional[Rot] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward, and the K/V of positions [0, S) (K after RoPE).  ``rot``:
+    the angles of positions [0, S), computed here when not given."""
+    if kind == "bidir":
+        rot = None
+    elif rot is None:
+        rot = rope_angles(torch.arange(x.shape[1], device=x.device)[None, :], cfg.hd,
+                          cfg.rope_theta)
+    q, k, v = _project_qkv(cfg, p, x, rot)
+    out = _attend(cfg, q, k, v, kind, q_chunk)
+    return out @ p.wo.to(x.dtype), {"k": k, "v": v}
+
+
+def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                pos: int, kind: str = "causal",
+                rot: Optional[Rot] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One new token at position ``pos`` (an int): x (B, 1, D), cache k/v
+    (B, S_max, KV, hd), written IN PLACE at ``pos`` — or at ``pos mod
+    S_max`` when a sliding-window layer's cache is no longer than its
+    window (a ring buffer: K is rotated before it is cached, so the order of
+    the slots does not matter).  ``rot``: the angles of ``pos``, computed
+    here when not given."""
+    if rot is None:
+        rot = rope_angles(torch.full((1, 1), pos, device=x.device), cfg.hd, cfg.rope_theta)
+    q, k_new, v_new = _project_qkv(cfg, p, x, rot)
+    k, v = cache["k"], cache["v"]
+    s_max = k.shape[1]
+    ring = kind == "local" and cfg.window > 0 and s_max <= cfg.window
+    if ring:
+        slot = pos % s_max
+    elif 0 <= pos < s_max:
+        slot = pos
+    else:
+        raise ValueError(f"decode position {pos} outside the cache of {s_max} positions")
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    kj = torch.arange(s_max, device=x.device)
+    if ring:
+        # slots [0, min(pos+1, S_max)) hold the last `window` tokens
+        mask = kj < min(pos + 1, s_max)
+    elif kind == "local" and cfg.window > 0:
+        mask = (kj <= pos) & (kj > pos - cfg.window)
+    else:
+        mask = kj <= pos
+    out = _sdpa(q, k, v, mask.reshape(1, s_max))
+    return out @ p.wo.to(x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+class MLP(nn.Module):
+    """``wi`` (d, f), ``wo`` (f, d) and, gated (SwiGLU), ``wg`` (d, f)."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.wi = _param((d, f), device)
+        self.wo = _param((f, d), device)
+        if cfg.gated_mlp:
+            self.wg = _param((d, f), device)
+        else:
+            self.register_parameter("wg", None)
+
+
+def init_mlp(cfg: ModelConfig, generator: torch.Generator, device=None) -> MLP:
+    """Standard normal weights scaled by 1/sqrt(fan-in)."""
+    m = MLP(cfg, device)
+    for w, fan_in in ((m.wi, cfg.d_model), (m.wg, cfg.d_model), (m.wo, cfg.d_ff)):
+        if w is not None:
+            w.normal_(generator=generator).div_(math.sqrt(fan_in))
+    return m
+
+
+def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if p.wg is not None:    # SwiGLU; silu as x * sigmoid(x), as jax.nn.silu
+        g = x @ p.wg.to(dt)
+        h = g * torch.sigmoid(g) * (x @ p.wi.to(dt))
+    else:                   # GELU 2-matrix; jax.nn.gelu's default tanh form
+        h = F.gelu(x @ p.wi.to(dt), approximate="tanh")
+    return h @ p.wo.to(dt)

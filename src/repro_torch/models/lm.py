@@ -1,0 +1,214 @@
+"""Decoder-only LM assembly: embeddings + layers + head.
+
+The port of ``repro.models.lm`` for the layer kinds ``attn``,
+``attn_local`` and ``mlp`` (dense llama3 / olmo / chameleon, gemma3's
+5-local : 1-global interleave with its tail).  A layer with an ``ssd``
+mixer or a ``moe`` FFN raises ``NotImplementedError`` (ROADMAP A13).
+
+The reference stacks the BLOCK's parameters on a leading ``n_blocks`` axis
+for ``lax.scan``; the port keeps one module per layer in ``LM.layers``, in
+the order of :meth:`ModelConfig.layer_specs` (block ``j``'s layer ``i`` is
+``layers[j * len(block) + i]``, tail layer ``i`` follows the blocks), and
+the cache is a list with one ``{"k", "v"}`` dict per layer.
+
+Four entry points, as in the reference:
+  forward(cfg, params, tokens)                 -> logits           (full sequence)
+  prefill(cfg, params, tokens)                 -> logits, caches
+  decode_step(cfg, params, token, pos, cache)  -> logits, cache    (cache written in place)
+  init_cache(cfg, batch, s_max, device=...)    -> cache
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import common as C
+
+__all__ = [
+    "LM",
+    "Layer",
+    "init_params",
+    "cast_params",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_cache",
+]
+
+Cache = List[Dict[str, torch.Tensor]]
+
+_KIND = {"attn": "causal", "attn_local": "local", "attn_bidir": "bidir"}
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.mixer == "ssd" or spec.ffn == "moe":
+        raise NotImplementedError(
+            f"layer {spec}: SSD and MoE layers are not ported yet (ROADMAP A13)")
+    if spec.mixer not in _KIND or spec.ffn not in ("mlp", "none"):
+        raise ValueError(f"unknown layer {spec}")
+
+
+class Layer(nn.Module):
+    """``pre_norm``, ``attn`` and, with an FFN, ``post_norm`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device=None) -> None:
+        super().__init__()
+        _check_spec(spec)
+        self.spec = spec
+        self.pre_norm = C.Norm(cfg, cfg.d_model, device)
+        self.attn = C.Attn(cfg, device)
+        if spec.ffn != "none":
+            self.post_norm = C.Norm(cfg, cfg.d_model, device)
+            self.mlp = C.MLP(cfg, device)
+
+
+class LM(nn.Module):
+    """``embed`` (padded vocab, d), ``final_norm``, ``layers`` and, untied,
+    ``lm_head`` (d, padded vocab).  Built on ``device`` with its parameters
+    uninitialised: :func:`init_params` draws them, ``carry`` copies them."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        self.embed = C._param((cfg.padded_vocab, cfg.d_model), device)
+        self.final_norm = C.Norm(cfg, cfg.d_model, device)
+        self.layers = nn.ModuleList(Layer(cfg, spec, device) for spec in cfg.layer_specs())
+        if cfg.tie_embeddings:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = C._param((cfg.d_model, cfg.padded_vocab), device)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> LM:
+    """Random float32 parameters on ``device`` (``None``: the card, raising
+    without one), drawn from ``generator``, which lies on the same device.
+    The distributions and scales are the reference's (normal embeddings and
+    head over sqrt(d_model), zero norm scales); the values are not."""
+    dev = resolve_device(device)
+    p = LM(cfg, device="meta")          # the layout; each part is drawn below
+    p.embed = C._param((cfg.padded_vocab, cfg.d_model), dev)
+    p.embed.normal_(generator=generator).div_(math.sqrt(cfg.d_model))
+    p.final_norm = C.init_norm(cfg, cfg.d_model, dev)
+    for layer in p.layers:
+        layer.pre_norm = C.init_norm(cfg, cfg.d_model, dev)
+        layer.attn = C.init_attn(cfg, generator, dev)
+        if layer.spec.ffn != "none":
+            layer.post_norm = C.init_norm(cfg, cfg.d_model, dev)
+            layer.mlp = C.init_mlp(cfg, generator, dev)
+    if not cfg.tie_embeddings:
+        p.lm_head = C._param((cfg.d_model, cfg.padded_vocab), dev)
+        p.lm_head.normal_(generator=generator).div_(math.sqrt(cfg.d_model))
+    return p
+
+
+def cast_params(cfg: ModelConfig, params: LM, dtype: torch.dtype, device=None) -> LM:
+    """``params`` on ``device`` (``None``: the card, raising without one)
+    with every weight in ``dtype`` and the norm scales kept in float32, in
+    one copy (none where a tensor is already so).  The forward functions
+    cast each weight to the activations' dtype at every matmul, which is
+    then free; the values are those of casting float32 weights per matmul."""
+    dev = resolve_device(device)
+    out = LM(cfg, device="meta")
+    state = {}
+    for name, t in params.state_dict().items():
+        keep = name.endswith("scale")
+        state[name] = t.to(device=dev, dtype=torch.float32 if keep else dtype)
+    out.load_state_dict(state, assign=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, layer: Layer, x: torch.Tensor) -> torch.Tensor:
+    if layer.spec.ffn == "none":
+        return x
+    h = C.norm_apply(cfg, x, layer.post_norm.scale)
+    return x + C.mlp_forward(layer.mlp, h)
+
+
+def _embed(params: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params.embed[tokens].to(dtype)
+
+
+def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
+    x = C.norm_apply(cfg, x, params.final_norm.scale)
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = (x @ w.to(x.dtype)).float()
+    if cfg.padded_vocab != cfg.vocab:   # the padding rows never win
+        logits[..., cfg.vocab:] = C.NEG_INF
+    return logits
+
+
+def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int,
+                    dtype) -> Tuple[torch.Tensor, Cache]:
+    x = _embed(params, tokens, dtype)
+    rot = C.rope_angles(torch.arange(tokens.shape[1], device=tokens.device)[None, :], cfg.hd,
+                        cfg.rope_theta)
+    caches = []
+    for layer in params.layers:
+        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+        out, kv = C.attn_prefill(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+        caches.append(kv)
+        x = _ffn(cfg, layer, x + out)
+    return x, caches
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0,
+            dtype=torch.bfloat16) -> torch.Tensor:
+    """Causal logits (B, S, V) float32 for tokens (B, S) on the params' device."""
+    x, _ = _prefill_layers(cfg, params, tokens, q_chunk, dtype)
+    return _head(cfg, params, x)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0,
+            dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
+    """The whole prompt: last-position logits (B, V) and each layer's K/V
+    at prompt length."""
+    x, caches = _prefill_layers(cfg, params, tokens, q_chunk, dtype)
+    return _head(cfg, params, x[:, -1:, :])[:, 0, :], caches
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
+               device=None) -> Cache:
+    """Zeroed K/V per layer on ``device`` (``None``: the card, raising
+    without one): ``s_max`` positions, or ``min(window, s_max)`` for a
+    sliding-window layer, whose cache ``attn_decode`` keeps as a ring
+    buffer (it wraps once a position reaches the window)."""
+    dev = resolve_device(device)
+    cache = []
+    for spec in cfg.layer_specs():
+        _check_spec(spec)
+        local = spec.mixer == "attn_local" and cfg.window
+        length = min(cfg.window, s_max) if local else s_max
+        shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+        cache.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                      "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: LM, token: torch.Tensor, pos: int, cache: Cache,
+                dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
+    """One step: token (B,) at position ``pos`` (an int) -> (B, V) float32
+    logits for the NEXT token.  The cache is updated in place and returned."""
+    pos = int(pos)
+    x = _embed(params, token[:, None], dtype)
+    rot = C.rope_angles(torch.full((1, 1), pos, device=token.device), cfg.hd, cfg.rope_theta)
+    for layer, lc in zip(params.layers, cache):
+        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+        out, _ = C.attn_decode(cfg, layer.attn, h, lc, pos, _KIND[layer.spec.mixer], rot)
+        x = _ffn(cfg, layer, x + out)
+    return _head(cfg, params, x)[:, 0, :], cache
