@@ -114,7 +114,20 @@ PyTorch built for CUDA.  It
    weight-byte bound, the prompt pass, peak memory and the tier's p50/p99
    are printed; then gemma3-1b in bf16 over 1,056 positions, where the
    local layers' 1,024-slot ring buffer wraps: the last 16 decode logits
-   equal ``forward``'s (relative error under 5e-2);
+   equal ``forward``'s (relative error under 5e-2); then (``lm_families``)
+   the other families at full published width: mamba2-370m in float32,
+   whose decode equals ``forward`` over (2, 512) tokens (two chunks) and a
+   256-token prefill handed to decode the next 256, then in bf16 behind an
+   engine over a fresh Compas prep index, lineage and erasure checked as
+   OLMo-1B's; whisper-small, whose decode after ``encode_into_cache``
+   equals ``forward`` over 1,500 frames in float32, then in bf16 at B = 16
+   with frames; qwen3-moe-235b-a22b at full width cut to 2 layers, whose
+   float32 ``moe_forward`` equals a plain loop over its 128 experts where
+   choices drop (asserted) and where none can, and whose decode equals
+   forward, then in bf16 at B = 64; ms a step against bounds that count
+   the recurrent state (mamba2) and the cross K/V (whisper), idle share and
+   peak memory; and the mamba2, jamba, qwen3-moe, dbrx and whisper smokes
+   on the card against the CPU;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -1261,8 +1274,9 @@ def timed_decode(engine, dev):
 def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
     """``steps`` decode steps of ``engine`` (after one warm step) under
     ``torch.profiler``: kernels and device-busy ms a step, the device's idle
-    share of an unprofiled ``step_ms`` step, and the host ops that take the
-    most self CPU time a step.  None where the profiler saw no kernel."""
+    share of an unprofiled ``step_ms`` step, the host ops that take the
+    most self CPU time a step and the kernels that take the most device
+    time a step.  None where the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = engine.model.init_cache(engine.cfg, batch, s_max, dtype=engine.dtype, device=dev)
@@ -1278,11 +1292,83 @@ def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
         return None
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    by_kernel = {}
+    for e in kernels:
+        n, us = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
     return {"steps": steps, "kernels_per_step": len(kernels) / steps,
             "device_busy_ms_per_step": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
             "top_self_cpu": [{"op": e.key, "calls_per_step": e.count / steps,
                               "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps}
-                             for e in host]}
+                             for e in host],
+            "top_device": [{"kernel": name[:120], "calls_per_step": n / steps,
+                            "device_ms_per_step": us / 1e3 / steps}
+                           for name, (n, us) in top]}
+
+
+def engine_lineage(engine, prep, sink, src, walk, result, request_ids, dev):
+    """The response lineage of a recorded generation whose requests are
+    rows of ``prep``'s ``sink``: the batch of every response alone equals
+    the prep walk's Q2 of its request's sink row and launches
+    ``batched_walk``, each ``response_lineage`` too, and the erasure of 4
+    raw rows reaches exactly the responses whose requests their Q1 reaches.
+    The launch counts are zeroed just before the batch (the references
+    run first); the caller reads them after whatever else its path runs.
+    Returns the record and the per-response answers."""
+    from repro_torch.kernels import ops
+    from repro_torch.provenance import prov
+    from repro_torch.provenance.catalog import qualify
+
+    n = len(request_ids)
+    q2 = prov(prep).source(sink).rows_batch([[int(r)] for r in request_ids]) \
+        .backward().to(src).run(walk)
+    erase = sorted({int(a[0]) for a in q2 if a.numel()})[:4]
+    check(len(erase) == 4, "fewer than 4 raw rows behind the requests")
+    reached = set(prov(prep).source(src).rows(erase).forward().to(sink).run(walk).tolist())
+    want_resp = [i for i, r in enumerate(request_ids.tolist()) if r in reached]
+    ops.reset_launch_counts()
+    got = engine.response_lineage_batch(result, [[i] for i in range(n)], upstream=src)
+    sync(dev)
+    lineage_counts = ops.launch_counts()
+    check(lineage_counts.get("batched_walk", 0) > 0,
+          f"the engine's lineage never launched batched_walk: {lineage_counts}")
+    per_row = [engine.response_lineage(result, rows=[i], upstream=src) for i in range(n)]
+    for i, (g, w) in enumerate(zip(got, q2)):
+        check(torch.equal(g, w), f"response {i}: lineage != the prep walk's Q2")
+        check(torch.equal(per_row[i], w), f"response {i}: response_lineage != Q2")
+    plan = engine.erasure_impact(erase, source=src)
+    by_ref = {i.ref: sorted(i.rows.tolist()) for i in plan.impacts}
+    resp_ref = qualify(engine._serve_name, result.response_dataset)
+    check(resp_ref == "serve/responses@0" and by_ref.get(resp_ref) == want_resp,
+          f"erasure reached {by_ref.get(resp_ref)}, Q1 reaches {want_resp}")
+    up = qualify(engine._upstream[0], src)
+    return ({"response_ref": resp_ref, "upstream": up,
+             "lineage": {"responses": n, "upstream": up, "launches": lineage_counts,
+                         "federation_counters": dict(engine.federation.counters)},
+             "erasure": {"raw_rows": erase, "responses": want_resp,
+                         "affected": [i.ref for i in plan.impacts]}}, per_row)
+
+
+def prep_engine(cfg, params, max_seq, dev):
+    """A bf16 ``ServeEngine`` of ``params`` whose upstream is a Compas prep
+    index captured on the card, its session on the fused walk, the engine's
+    federated session pinned to the cold route (no stitched cross
+    relation: the default gate stitches a 64-probe route at once, and the
+    walk would never launch).  Returns the engine, the prep index, its sink
+    and source, and the walk session."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.serve import ServeEngine
+
+    make, run = U.USECASES["compas"]
+    prep = ProvenanceIndex("prep", device=dev)
+    sink = run(prep, make(device=dev)).dataset_id
+    src = prep.sources()[0]
+    walk = prep.session(use_hopcache=False, fused_walk=True)   # before any query
+    engine = ServeEngine(cfg, params, max_seq=max_seq, upstream=prep.export(sink), device=dev)
+    engine.catalog.session(cross_budget_bytes=0)
+    return engine, prep, sink, src, walk
 
 
 def lm_serving_phase(dev):
@@ -1302,12 +1388,9 @@ def lm_serving_phase(dev):
     against ``forward`` at the last 16.  Returns the results and the
     launch counts of the lineage, erasure and tier calls."""
     from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.core.pipeline import ProvenanceIndex
-    from repro_torch.dataprep import usecases as U
     from repro_torch.kernels import ops
     from repro_torch.models import lm as TL
     from repro_torch.provenance import prov
-    from repro_torch.provenance.catalog import qualify
     from repro_torch.serve import ServeEngine, ServingTier
 
     out = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
@@ -1342,17 +1425,10 @@ def lm_serving_phase(dev):
         smokes[arch] = {"logits_rel_err": err, "tokens_equal": True}
 
     # (a) OLMo-1B in bf16 behind the engine, upstream a Compas prep index
-    make, run = U.USECASES["compas"]
-    prep = ProvenanceIndex("prep", device=dev)
-    sink = run(prep, make(device=dev)).dataset_id
-    src = prep.sources()[0]
-    walk = prep.session(use_hopcache=False, fused_walk=True)   # before any query
-    engine = ServeEngine(cfg, params, max_seq=48, upstream=prep.export(sink), device=dev)
+    # on the cold route: every probe crosses the boundary as member
+    # segments and the prep segment runs on its fused walk
+    engine, prep, sink, src, walk = prep_engine(cfg, params, 48, dev)
     del params
-    # the cold route: no stitched cross relation (the default gate stitches
-    # a 64-probe route at once), so every probe crosses the boundary as
-    # member segments and the prep segment runs on its fused walk
-    engine.catalog.session(cross_budget_bytes=0)
     n_params = sum(t.numel() for t in engine.params.state_dict().values())
     rng = np.random.default_rng(SEED + 9)
     engine.generate(rng.integers(1, cfg.vocab, (64, 4)).astype(np.int32), n_new=2)  # warm-up
@@ -1371,31 +1447,10 @@ def lm_serving_phase(dev):
     bound_ms = weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # references, before the counts are zeroed: the prep walk's Q2 of each
-    # request's sink row and the Q1 of the rows to erase
-    q2 = prov(prep).source(sink).rows_batch([[int(r)] for r in request_ids]) \
-        .backward().to(src).run(walk)
-    erase = sorted({int(a[0]) for a in q2 if a.numel()})[:4]
-    check(len(erase) == 4, "fewer than 4 raw rows behind the requests")
-    reached = set(prov(prep).source(src).rows(erase).forward().to(sink).run(walk).tolist())
-    want_resp = [i for i, r in enumerate(request_ids.tolist()) if r in reached]
     # the path: the batch, each response alone, the erasure and the tier
-    ops.reset_launch_counts()
-    got = engine.response_lineage_batch(result, [[i] for i in range(64)], upstream=src)
-    sync(dev)
-    lineage_counts = ops.launch_counts()
-    check(lineage_counts.get("batched_walk", 0) > 0,
-          f"the engine's lineage never launched batched_walk: {lineage_counts}")
-    per_row = [engine.response_lineage(result, rows=[i], upstream=src) for i in range(64)]
-    for i, (g, w) in enumerate(zip(got, q2)):
-        check(torch.equal(g, w), f"response {i}: lineage != the prep walk's Q2")
-        check(torch.equal(per_row[i], w), f"response {i}: response_lineage != Q2")
-    plan = engine.erasure_impact(erase, source=src)
-    by_ref = {i.ref: sorted(i.rows.tolist()) for i in plan.impacts}
-    resp_ref = qualify(engine._serve_name, result.response_dataset)
-    check(resp_ref == "serve/responses@0" and by_ref.get(resp_ref) == want_resp,
-          f"erasure reached {by_ref.get(resp_ref)}, Q1 reaches {want_resp}")
-    up = qualify(engine._upstream[0], src)
+    lineage, per_row = engine_lineage(engine, prep, sink, src, walk, result, request_ids, dev)
+    resp_ref = lineage["response_ref"]
+    up = lineage["upstream"]
     tier_rows = rng.integers(0, 64, 512)
     plans = [prov(engine.catalog).source(resp_ref).rows([int(i)]).backward().to(up).plan()
              for i in tier_rows]
@@ -1416,16 +1471,13 @@ def lm_serving_phase(dev):
         "generate_s": generate_s, "generate_tokens_per_s": 64 * 16 / generate_s,
         "max_memory_allocated_bytes": peak,
         "float32_decode_vs_forward_rel": fp32_rel,
-        "lineage": {"responses": 64, "upstream": up, "launches": lineage_counts,
-                    "federation_counters": dict(engine.federation.counters)},
-        "erasure": {"raw_rows": erase, "responses": want_resp,
-                    "affected": [i.ref for i in plan.impacts]},
+        **lineage,
         "tier": {"requests": 512, "clients": 8, "p50_ms": statistics.median(lat) * 1e3,
                  "p99_ms": float(np.percentile(lat, 99)) * 1e3, "rps": 512 / wall,
                  "batches": tier_stats["batches"],
                  "max_batch_seen": tier_stats["max_batch_seen"]},
         "decode_profile": olmo_profile}
-    del engine, prep, walk, got, per_row, q2
+    del engine, prep, walk, per_row
 
     # (b) gemma3-1b in bf16: 1,056 positions, the local layers' ring wraps
     cfg = get_config("gemma3-1b")
@@ -1459,6 +1511,248 @@ def lm_serving_phase(dev):
     out["tolerances"] = {"float32_decode": LM_FP32_REL, "bfloat16_decode": LM_BF16_REL,
                          "card_vs_cpu": LM_CPU_REL}
     del engine, cache, full, last
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# -- every model family (phase 7k) ---------------------------------------------
+MOE_FP32_REL = 1e-4   # moe_forward against the phase's plain loop over experts, float32
+
+
+def plain_moe_loop(cfg, p, x):
+    """An independent loop over the experts, float32: each token's top-k of
+    the float32 router logits, softmaxed over the k; each expert keeps the
+    first ``cap`` tokens that chose it, in token order (``cap``: the
+    capacity factor times the even share, rounded up to 8, at least 8),
+    and adds weight * its SwiGLU output of each.  Returns the output and
+    the number of dropped choices."""
+    xt = x.reshape(-1, x.shape[-1]).float()
+    t = xt.shape[0]
+    topw, topi = torch.topk(xt @ p.router.float(), cfg.top_k, dim=-1)
+    w = torch.softmax(topw, dim=-1)
+    share = t * cfg.top_k / cfg.n_experts * cfg.capacity_factor
+    cap = max(int(np.ceil(share / 8.0)) * 8, 8)
+    out = torch.zeros_like(xt)
+    dropped = 0
+    for e in range(cfg.n_experts):
+        tok, j = (topi == e).nonzero(as_tuple=True)           # token order
+        dropped += max(tok.numel() - cap, 0)
+        tok, j = tok[:cap], j[:cap]
+        g = xt[tok] @ p.wg[e].float()
+        h = g * torch.sigmoid(g) * (xt[tok] @ p.wi[e].float())
+        out.index_add_(0, tok, (h @ p.wo[e].float()) * w[tok, j][:, None])
+    return out.reshape(x.shape), dropped
+
+
+def decode_all(model, cfg, params, toks, cache, start=0):
+    """Token-by-token ``decode_step`` of toks (B, S) at positions start..:
+    (B, S, V) float32 logits."""
+    return torch.stack([model.decode_step(cfg, params, toks[:, i], start + i, cache,
+                                          dtype=torch.float32)[0]
+                        for i in range(toks.shape[1])], dim=1)
+
+
+def served(engine, dev, batch, prompt_len, n_new, rng, frames=None, **kw):
+    """A warm-up generation, then ``batch`` prompts of ``prompt_len`` tokens
+    and ``n_new`` new greedy tokens with every decode step synchronised and
+    timed, and the decode profile.  Returns the result and the record (its
+    peak memory: since the caller's last reset)."""
+    cfg = engine.cfg
+    engine.generate(rng.integers(1, cfg.vocab, (batch, 2)).astype(np.int32), n_new=2,
+                    frames=frames)
+    prompts = rng.integers(1, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    steps = timed_decode(engine, dev)
+    t = time.perf_counter()
+    result = engine.generate(prompts, n_new=n_new, frames=frames, **kw)
+    generate_s = time.perf_counter() - t
+    del engine._decode
+    check(result.tokens.shape == (batch, n_new) and result.tokens.dtype == np.int32
+          and 0 <= int(result.tokens.min()) and int(result.tokens.max()) < cfg.vocab,
+          f"{cfg.name}: tokens {result.tokens.shape} {result.tokens.dtype}")
+    step_ms = statistics.median(steps[prompt_len:]) * 1e3
+    return result, {
+        "dtype": "bfloat16", "weight_bytes": weight_bytes(engine.params),
+        "n_weights": sum(t.numel() for t in engine.params.state_dict().values()),
+        "batch": batch, "prompt_len": prompt_len, "n_new": n_new,
+        "decode_ms_per_step": step_ms, "decode_ms_per_step_min": min(steps[prompt_len:]) * 1e3,
+        "decode_tokens_per_s": batch / (step_ms / 1e3), "prompt_pass_ms": sum(steps[:prompt_len]) * 1e3,
+        "generate_s": generate_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "decode_profile": profile_decode(engine, dev, batch, engine.max_seq, step_ms)}
+
+
+def lm_families_phase(dev):
+    """Every other model family through ``ServeEngine`` at full published
+    width, the weights random from the seed.  (d) first: the mamba2, jamba,
+    qwen3-moe, dbrx and whisper smokes on the card against the CPU (float32
+    logits, greedy tokens; whisper given frames).  (a) mamba2-370m (48
+    layers): float32 ``forward`` over (2, 512) tokens (two 256-token
+    chunks, so the inter-chunk recurrence runs) against token-by-token
+    ``decode_step``, and ``prefill`` of 256 tokens handed to decode for the
+    next 256 against the same forward; then bf16 behind an engine whose
+    upstream is a Compas prep index on the cold route: 64 prompts of 32
+    tokens, 16 new, recorded, its lineage and erasure checked as OLMo-1B's
+    (``engine_lineage``); the bound counts the float32 recurrent state each
+    step reads and writes beside the weights.  (b) whisper-small (12 + 12
+    layers, 1,500 frames): float32 decode after ``encode_into_cache``
+    against ``forward`` over (2, 32) tokens; bf16 engine with frames at
+    B = 16, 8-token prompts, 16 new; the bound adds the cross K/V each step
+    reads.  (c) qwen3-moe-235b-a22b at full width, depth cut to 2 layers:
+    float32 ``moe_forward`` against ``plain_moe_loop`` at 96 tokens (some
+    choices drop, asserted) and 8 (none can: 8 tokens never exceed the
+    capacity of 8), decode against forward on (2, 4) tokens (8 tokens: the
+    forward drops nothing); then the float32 copy freed behind a bf16
+    engine at B = 64, whose step reads every expert.  Returns the results
+    and the launch counts of the mamba2 engine's lineage and erasure."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as TL
+    from repro_torch.models import moe as TM
+    from repro_torch.models import whisper as TW
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import ServeEngine
+
+    out = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 10)
+
+    # (d) the smokes on the card against the CPU
+    smokes = {}
+    for arch in ("mamba2-370m", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "dbrx-132b",
+                 "whisper-small"):
+        scfg = get_smoke_config(arch)
+        model = get_model(scfg)
+        p_cpu = model.init_params(scfg, torch.Generator().manual_seed(SEED), "cpu")
+        p_dev = model.cast_params(scfg, p_cpu, torch.float32, dev)
+        srng = np.random.default_rng(SEED)
+        stoks = torch.from_numpy(srng.integers(0, scfg.vocab, (4, 16)))
+        fr = (srng.normal(size=(4, scfg.enc_seq, scfg.d_model)).astype(np.float32)
+              if scfg.is_encdec else None)
+
+        def logits(p, d):
+            args = (stoks.to(d),) if fr is None else (torch.from_numpy(fr).to(d), stoks.to(d))
+            return model.forward(scfg, p, *args, dtype=torch.float32)[..., :scfg.vocab].cpu()
+
+        err = rel_err(logits(p_dev, dev), logits(p_cpu, "cpu"))
+        check(err < LM_CPU_REL, f"{arch} smoke: card logits != CPU (rel {err})")
+        prompts = srng.integers(1, scfg.vocab, (4, 8)).astype(np.int32)
+        tok = {d: ServeEngine(scfg, p_cpu, 16, dtype=torch.float32, device=d)
+               .generate(prompts, n_new=8, frames=fr).tokens for d in ("cpu", dev)}
+        check(np.array_equal(tok["cpu"], tok[dev]), f"{arch} smoke: greedy tokens card != CPU")
+        smokes[arch] = {"logits_rel_err": err, "tokens_equal": True}
+    out["smokes_card_vs_cpu"] = smokes
+
+    # (a) mamba2-370m at full size
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("mamba2-370m")
+    params = TL.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 512), generator=gen, device=dev)
+    full = TL.forward(cfg, params, toks, dtype=torch.float32)[..., :cfg.vocab]
+    check(bool(torch.isfinite(full).all()), "mamba2-370m float32: non-finite logits")
+    cache = TL.init_cache(cfg, 2, 512, dtype=torch.float32, device=dev)
+    dec_rel = rel_err(decode_all(TL, cfg, params, toks, cache)[..., :cfg.vocab], full)
+    check(dec_rel < LM_FP32_REL, f"mamba2-370m float32: decode != forward (rel {dec_rel})")
+    head, cache = TL.prefill(cfg, params, toks[:, :256], dtype=torch.float32)
+    rest = decode_all(TL, cfg, params, toks[:, 256:], cache, start=256)
+    handoff = torch.cat([head[:, None], rest], dim=1)[..., :cfg.vocab]
+    pre_rel = rel_err(handoff, full[:, 255:])
+    check(pre_rel < LM_FP32_REL, f"mamba2-370m float32: prefill + decode != forward ({pre_rel})")
+    del full, cache, head, rest, handoff
+    fp32_peak = torch.cuda.max_memory_allocated(dev)
+    engine, prep, sink, src, walk = prep_engine(cfg, params, 48, dev)
+    del params
+    request_ids = rng.integers(0, prep.datasets[sink].n_rows, 64)
+    result, rec = served(engine, dev, 64, 32, 16, rng, request_ids=request_ids,
+                         record_provenance=True)
+    lineage, _ = engine_lineage(engine, prep, sink, src, walk, result, request_ids, dev)
+    counts = ops.launch_counts()
+    n_ssd = sum(spec.mixer == "ssd" for spec in cfg.layer_specs())
+    state_bytes = n_ssd * 64 * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4  # float32
+    bound_weights_ms = rec["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_state_ms = 2 * state_bytes / HBM_BYTES_PER_S * 1e3   # read and written each step
+    out["mamba2_370m"] = {
+        "n_params": cfg.n_params(), **rec,
+        "state_bytes": state_bytes, "bound_weights_ms": bound_weights_ms,
+        "bound_state_ms": bound_state_ms, "bound_ms": bound_weights_ms + bound_state_ms,
+        "bound_by": "bytes", "float32_decode_vs_forward_rel": dec_rel,
+        "float32_prefill_then_decode_rel": pre_rel, "float32_max_memory_allocated_bytes": fp32_peak,
+        "seconds": time.perf_counter() - t0, **lineage}
+    del engine, prep, walk, result
+
+    # (b) whisper-small at full size
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("whisper-small")
+    params = TW.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen, device=dev)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+    full = TW.forward(cfg, params, frames, toks, dtype=torch.float32)[..., :cfg.vocab]
+    check(bool(torch.isfinite(full).all()), "whisper-small float32: non-finite logits")
+    cache = TW.encode_into_cache(cfg, params, frames,
+                                 TW.init_cache(cfg, 2, 32, dtype=torch.float32, device=dev))
+    dec_rel = rel_err(decode_all(TW, cfg, params, toks, cache)[..., :cfg.vocab], full)
+    check(dec_rel < LM_FP32_REL, f"whisper-small float32: decode != forward (rel {dec_rel})")
+    del full, cache, frames
+    engine = ServeEngine(cfg, params, max_seq=24, device=dev)
+    del params
+    frames = rng.normal(size=(16, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    enc_in = torch.as_tensor(frames, dtype=engine.dtype, device=dev)
+    enc_cache = TW.init_cache(cfg, 16, 24, dtype=engine.dtype, device=dev)
+    encode_ms = statistics.median(
+        sync_time(TW.encode_into_cache, cfg, engine.params, enc_in, enc_cache)[1]
+        for _ in range(4)) * 1e3
+    cross_bytes = sum(lc[k].numel() * lc[k].element_size() for lc in enc_cache for k in ("ck", "cv"))
+    del enc_in, enc_cache
+    _, rec = served(engine, dev, 16, 8, 16, rng, frames=frames)
+    bound_weights_ms = rec["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_cross_ms = cross_bytes / HBM_BYTES_PER_S * 1e3
+    out["whisper_small"] = {
+        "n_params": cfg.n_params(), **rec, "encoder_ms": encode_ms, "frames": cfg.enc_seq,
+        "cross_kv_bytes": cross_bytes, "bound_weights_ms": bound_weights_ms,
+        "bound_cross_kv_ms": bound_cross_ms, "bound_ms": bound_weights_ms + bound_cross_ms,
+        "bound_by": "bytes", "float32_decode_vs_forward_rel": dec_rel,
+        "seconds": time.perf_counter() - t0}
+    del engine
+
+    # (c) qwen3-moe-235b-a22b at full width, 2 of its 94 layers
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full_cfg = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full_cfg, n_layers=2)
+    params = TL.init_params(cfg, gen, dev)
+    moe = params.layers[0].moe
+    moe_checks = {}
+    for t, drops in ((96, True), (8, False)):
+        x = torch.randn((2, t // 2, cfg.d_model), generator=gen, device=dev)
+        want, dropped = plain_moe_loop(cfg, moe, x)
+        err = rel_err(TM.moe_forward(cfg, moe, x), want)
+        check(err < MOE_FP32_REL, f"qwen3-moe moe_forward at {t} tokens != plain loop ({err})")
+        check((dropped > 0) == drops, f"qwen3-moe at {t} tokens: {dropped} choices dropped")
+        moe_checks[t] = {"capacity": TM._capacity(cfg, t), "dropped": dropped, "rel_err": err}
+    toks = torch.randint(0, cfg.vocab, (2, 4), generator=gen, device=dev)
+    full = TL.forward(cfg, params, toks, dtype=torch.float32)
+    cache = TL.init_cache(cfg, 2, 4, dtype=torch.float32, device=dev)
+    dec_rel = rel_err(decode_all(TL, cfg, params, toks, cache), full)
+    check(dec_rel < LM_FP32_REL, f"qwen3-moe float32: decode != forward (rel {dec_rel})")
+    fp32_peak = torch.cuda.max_memory_allocated(dev)
+    del full, cache, moe
+    engine = ServeEngine(cfg, params, max_seq=24, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    _, rec = served(engine, dev, 64, 8, 16, rng)
+    bound_ms = rec["weight_bytes"] / HBM_BYTES_PER_S * 1e3   # every expert is read each step
+    out["qwen3_moe_2_layers"] = {
+        "n_params": cfg.n_params(), **rec, "reduced": {"n_layers": [full_cfg.n_layers, 2]},
+        "experts": cfg.n_experts, "top_k": cfg.top_k, "decode_capacity": TM._capacity(cfg, 64),
+        "bound_ms": bound_ms, "bound_by": "bytes", "moe_forward_vs_plain": moe_checks,
+        "float32_decode_vs_forward_rel": dec_rel, "float32_max_memory_allocated_bytes": fp32_peak,
+        "seconds": time.perf_counter() - t0}
+    out["tolerances"] = {"float32_decode": LM_FP32_REL, "card_vs_cpu": LM_CPU_REL,
+                         "moe_forward_vs_plain": MOE_FP32_REL}
+    del engine
     torch.cuda.empty_cache()
     return out, counts
 
@@ -2628,6 +2922,17 @@ def main() -> int:
     emit({"phase": "lm_serving", "card": card, "seconds": time.perf_counter() - t,
           **lm_serving, "launch_counts": lm_counts})
 
+    # -- 7k. every other model family through ServeEngine: mamba2-370m and
+    # whisper-small at full size, qwen3-moe at full width with 2 layers
+    # (float32 against forward and a plain MoE loop, then bf16 engines;
+    # mamba2's behind a Compas prep index, its lineage and erasure
+    # checked); the mamba2, jamba, qwen3-moe, dbrx and whisper smokes
+    # against the CPU
+    t = time.perf_counter()
+    families, fam_counts = lm_families_phase(dev)
+    emit({"phase": "lm_families", "card": card, "seconds": time.perf_counter() - t,
+          **families, "launch_counts": fam_counts})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -2865,7 +3170,7 @@ def main() -> int:
                 "attribute": attr_counts.get(k, 0), "spill_hopcache": spill_hc_counts.get(k, 0),
                 "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
                 "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
-                "lm_serving": lm_counts.get(k, 0)}
+                "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -2882,7 +3187,8 @@ def main() -> int:
                               "chapman": chapman_counts.get("batched_walk", 0),
                               "serving_tier": serving_counts.get("batched_walk", 0),
                               "sharded": sharded_counts.get("batched_walk", 0),
-                              "lm_serving": lm_counts.get("batched_walk", 0)},
+                              "lm_serving": lm_counts.get("batched_walk", 0),
+                              "lm_families": fam_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -2896,7 +3202,8 @@ def main() -> int:
                               "chapman": chapman_counts.get("bitmatmul", 0),
                               "serving_tier": serving_counts.get("bitmatmul", 0),
                               "sharded": sharded_counts.get("bitmatmul", 0),
-                              "lm_serving": lm_counts.get("bitmatmul", 0)},
+                              "lm_serving": lm_counts.get("bitmatmul", 0),
+                              "lm_families": fam_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -2925,7 +3232,8 @@ def main() -> int:
                     ("federation", fed_counts), ("serving_tier", serving_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
-                    ("sharded", sharded_counts), ("lm_serving", lm_counts)):
+                    ("sharded", sharded_counts), ("lm_serving", lm_counts),
+                    ("lm_families", fam_counts)):
         check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

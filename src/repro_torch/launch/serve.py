@@ -1,6 +1,7 @@
 """Serving launcher.
 
-* LOCAL (default): run the batched ServeEngine on a reduced config —
+* LOCAL (default): run the batched ServeEngine on a reduced config of any
+  of the ten architectures (an encoder-decoder gets random frames) —
   generates real tokens on ``--device`` (default: the card) and reports
   per-token latency.
 * TIER (--tier): additionally record request/response provenance and drive
@@ -13,6 +14,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --tier
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu
 """
 import argparse
 import time
@@ -52,11 +54,14 @@ def main(argv=None) -> None:
     params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, (args.batch, 8)).astype(np.int32)
+    frames = (rng.normal(size=(args.batch, cfg.enc_seq, cfg.d_model))
+              .astype(np.float32) if cfg.is_encdec else None)
 
     engine = ServeEngine(cfg, params, max_seq=8 + args.n_new, dtype=torch.float32,
                          device=dev)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_new=args.n_new, record_provenance=args.tier)
+    out = engine.generate(prompts, n_new=args.n_new, frames=frames,
+                          record_provenance=args.tier)
     dt = time.perf_counter() - t0
     print(f"generated {out.tokens.shape} on {dev} in {dt:.2f}s "
           f"({dt / args.n_new * 1e3:.1f} ms/token incl. prompt pass)")

@@ -1,4 +1,5 @@
-"""Shared model components: norms, RoPE, GQA attention, gated MLP.
+"""Shared model components: norms, RoPE, GQA attention, cross-attention,
+gated MLP, and the one-time weight cast.
 
 The port of ``repro.models.common``.  The arithmetic is plain functions on
 tensors, taking ``(cfg, p, ...)`` as the reference package does; the
@@ -9,19 +10,22 @@ serves, it does not train.
 
 Weights may be held in float32 and cast per matmul to the activations'
 dtype (``w.to(x.dtype)``, the reference's ``.astype(dt)``), or cast once up
-front (:func:`repro_torch.models.lm.cast_params`), which gives the same
-values and makes every per-matmul cast a no-op.  Norm scales always stay
-float32: the norms compute in float32.
+front (:func:`cast_module`, behind ``lm.cast_params`` and
+``whisper.cast_params``), which gives the same values and makes every
+per-matmul cast a no-op.  The weights the reference computes with in
+float32 stay float32 (:data:`FLOAT32_PARAMS`): the norm scales, the MoE
+router and the SSD's ``A_log`` and ``dt_bias``.
 
-Attention serves three duties from one implementation:
-  * full sequence — causal (optionally sliding-window) attention, with
-    query chunking so the score matrix never exceeds (q_chunk x S) per head;
+Attention serves four duties from one implementation:
+  * full sequence — causal (optionally sliding-window) or bidirectional
+    attention, with query chunking so the score matrix never exceeds
+    (q_chunk x S) per head;
   * prefill       — the same, returning the prompt's K/V;
   * decode        — one new token against a cache, written in place; a
     sliding-window layer whose cache is no longer than its window keeps it
-    as a ring buffer.
-The cross-attention of the encoder-decoder model is not ported yet
-(ROADMAP A13, whisper).
+    as a ring buffer;
+  * cross         — the encoder-decoder's decoder queries against the
+    encoder's K/V (no RoPE, no mask), computed once per request.
 """
 from __future__ import annotations
 
@@ -50,7 +54,12 @@ __all__ = [
     "attn_forward",
     "attn_prefill",
     "attn_decode",
+    "cross_attn_forward",
+    "cross_kv",
+    "cross_attn_decode",
     "mlp_forward",
+    "FLOAT32_PARAMS",
+    "cast_module",
 ]
 
 NEG_INF = -1e30     # the reference's mask fill, applied to float32 scores
@@ -134,16 +143,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 class Attn(nn.Module):
     """``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd), ``wo`` (H*hd, d), and with
-    QK-norm ``q_scale``/``k_scale`` (hd,)."""
+    QK-norm ``q_scale``/``k_scale`` (hd,) — except on a cross-attention,
+    which has no QK scales, as in the reference."""
 
-    def __init__(self, cfg: ModelConfig, device=None) -> None:
+    def __init__(self, cfg: ModelConfig, device=None, cross: bool = False) -> None:
         super().__init__()
         d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
         self.wq = _param((d, h * hd), device)
         self.wk = _param((d, kv * hd), device)
         self.wv = _param((d, kv * hd), device)
         self.wo = _param((h * hd, d), device)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_scale = _param((hd,), device)
             self.k_scale = _param((hd,), device)
         else:
@@ -151,11 +161,12 @@ class Attn(nn.Module):
             self.register_parameter("k_scale", None)
 
 
-def init_attn(cfg: ModelConfig, generator: torch.Generator, device=None) -> Attn:
+def init_attn(cfg: ModelConfig, generator: torch.Generator, device=None,
+              cross: bool = False) -> Attn:
     """Standard normal weights scaled by 1/sqrt(d_model) (``wo`` too), QK
     scales at zero: the reference's distributions, drawn from
     ``generator`` (which lies on ``device``)."""
-    a = Attn(cfg, device)
+    a = Attn(cfg, device, cross)
     s = 1.0 / math.sqrt(cfg.d_model)
     for w in (a.wq, a.wk, a.wv, a.wo):
         w.normal_(generator=generator).mul_(s)
@@ -165,13 +176,16 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator, device=None) -> Attn
     return a
 
 
-def _project_qkv(cfg: ModelConfig, p: Attn, x: torch.Tensor, rot: Optional[Rot]):
+def _project_qkv(cfg: ModelConfig, p: Attn, x: torch.Tensor, rot: Optional[Rot],
+                 kv_in: Optional[torch.Tensor] = None):
+    """Q from ``x``, K/V from ``kv_in`` (default ``x``)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
+    kv_in = x if kv_in is None else kv_in
     q = (x @ p.wq.to(dt)).reshape(b, -1, h, hd)
-    k = (x @ p.wk.to(dt)).reshape(b, -1, kv, hd)
-    v = (x @ p.wv.to(dt)).reshape(b, -1, kv, hd)
+    k = (kv_in @ p.wk.to(dt)).reshape(b, -1, kv, hd)
+    v = (kv_in @ p.wv.to(dt)).reshape(b, -1, kv, hd)
     if cfg.qk_norm and p.q_scale is not None:
         q = rmsnorm(q, p.q_scale)
         k = rmsnorm(k, p.k_scale)
@@ -279,6 +293,35 @@ def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, tor
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention (the encoder-decoder's decoder): K/V from the encoder,
+# computed once per request; no RoPE, no mask
+# ---------------------------------------------------------------------------
+def cross_attn_forward(cfg: ModelConfig, p: Attn, x: torch.Tensor,
+                       enc: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) attends to every position of enc (B, S_enc, D)."""
+    q, k, v = _project_qkv(cfg, p, x, None, enc)
+    return _sdpa(q, k, v, None) @ p.wo.to(x.dtype)
+
+
+def cross_kv(cfg: ModelConfig, p: Attn, enc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The cross K/V of enc (B, S_enc, D): ``ck``/``cv`` (B, S_enc, KV, hd)."""
+    b = enc.shape[0]
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    dt = enc.dtype
+    return {"ck": (enc @ p.wk.to(dt)).reshape(b, -1, kv, hd),
+            "cv": (enc @ p.wv.to(dt)).reshape(b, -1, kv, hd)}
+
+
+def cross_attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor,
+                      ckv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x (B, S, D) against precomputed ``cross_kv`` (cast to x's dtype)."""
+    b = x.shape[0]
+    dt = x.dtype
+    q = (x @ p.wq.to(dt)).reshape(b, -1, cfg.n_heads, cfg.hd)
+    return _sdpa(q, ckv["ck"].to(dt), ckv["cv"].to(dt), None) @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
 # Gated MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
@@ -312,3 +355,26 @@ def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:                   # GELU 2-matrix; jax.nn.gelu's default tanh form
         h = F.gelu(x @ p.wi.to(dt), approximate="tanh")
     return h @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# The one-time cast
+# ---------------------------------------------------------------------------
+# Parameters whose names end so are computed with in float32 by the
+# reference (norm scales; the MoE router, ``x.astype(float32) @ router``;
+# the SSD's ``-exp(A_log)`` and ``softplus(dt + dt_bias)``): a cast to bf16
+# would round them, and the router's top-k would then differ.
+FLOAT32_PARAMS = ("scale", "router", "A_log", "dt_bias")
+
+
+def cast_module(params: nn.Module, out: nn.Module, dtype: torch.dtype, device) -> nn.Module:
+    """Load ``params``' values into ``out`` (the same layout, built on the
+    meta device) on ``device`` with every weight in ``dtype`` and the
+    :data:`FLOAT32_PARAMS` in float32, in one copy (none where a tensor is
+    already so)."""
+    state = {}
+    for name, t in params.state_dict().items():
+        keep = name.endswith(FLOAT32_PARAMS)
+        state[name] = t.to(device=device, dtype=torch.float32 if keep else dtype)
+    out.load_state_dict(state, assign=True)
+    return out

@@ -1,15 +1,17 @@
 """Decoder-only LM assembly: embeddings + layers + head.
 
-The port of ``repro.models.lm`` for the layer kinds ``attn``,
-``attn_local`` and ``mlp`` (dense llama3 / olmo / chameleon, gemma3's
-5-local : 1-global interleave with its tail).  A layer with an ``ssd``
-mixer or a ``moe`` FFN raises ``NotImplementedError`` (ROADMAP A13).
+The port of ``repro.models.lm`` for every layer kind the configs use: the
+mixers ``attn``, ``attn_local`` and ``ssd`` (Mamba2, :mod:`.ssd`) and the
+FFNs ``mlp``, ``moe`` (:mod:`.moe`) and ``none`` — dense llama3 / olmo /
+chameleon, gemma3's 5-local : 1-global interleave with its tail, pure-SSD
+mamba2, the jamba hybrid and the qwen3 / dbrx MoE stacks.
 
 The reference stacks the BLOCK's parameters on a leading ``n_blocks`` axis
 for ``lax.scan``; the port keeps one module per layer in ``LM.layers``, in
 the order of :meth:`ModelConfig.layer_specs` (block ``j``'s layer ``i`` is
 ``layers[j * len(block) + i]``, tail layer ``i`` follows the blocks), and
-the cache is a list with one ``{"k", "v"}`` dict per layer.
+the cache is a list with one dict per layer: ``{"k", "v"}`` for an
+attention layer, ``{"state", "conv"}`` for an SSD layer.
 
 Four entry points, as in the reference:
   forward(cfg, params, tokens)                 -> logits           (full sequence)
@@ -28,6 +30,8 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import common as C
+from repro_torch.models import moe as M
+from repro_torch.models import ssd as S
 
 __all__ = [
     "LM",
@@ -46,25 +50,30 @@ _KIND = {"attn": "causal", "attn_local": "local", "attn_bidir": "bidir"}
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer == "ssd" or spec.ffn == "moe":
-        raise NotImplementedError(
-            f"layer {spec}: SSD and MoE layers are not ported yet (ROADMAP A13)")
-    if spec.mixer not in _KIND or spec.ffn not in ("mlp", "none"):
+    if (spec.mixer not in _KIND and spec.mixer != "ssd") \
+            or spec.ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown layer {spec}")
 
 
 class Layer(nn.Module):
-    """``pre_norm``, ``attn`` and, with an FFN, ``post_norm`` and ``mlp``."""
+    """``pre_norm``, the mixer (``attn`` or ``ssd``) and, with an FFN,
+    ``post_norm`` and ``mlp`` or ``moe``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device=None) -> None:
         super().__init__()
         _check_spec(spec)
         self.spec = spec
         self.pre_norm = C.Norm(cfg, cfg.d_model, device)
-        self.attn = C.Attn(cfg, device)
+        if spec.mixer == "ssd":
+            self.ssd = S.SSD(cfg, device)
+        else:
+            self.attn = C.Attn(cfg, device)
         if spec.ffn != "none":
             self.post_norm = C.Norm(cfg, cfg.d_model, device)
-            self.mlp = C.MLP(cfg, device)
+            if spec.ffn == "moe":
+                self.moe = M.MoE(cfg, device)
+            else:
+                self.mlp = C.MLP(cfg, device)
 
 
 class LM(nn.Module):
@@ -98,10 +107,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> LM
     p.final_norm = C.init_norm(cfg, cfg.d_model, dev)
     for layer in p.layers:
         layer.pre_norm = C.init_norm(cfg, cfg.d_model, dev)
-        layer.attn = C.init_attn(cfg, generator, dev)
+        if layer.spec.mixer == "ssd":
+            layer.ssd = S.init_ssd(cfg, generator, dev)
+        else:
+            layer.attn = C.init_attn(cfg, generator, dev)
         if layer.spec.ffn != "none":
             layer.post_norm = C.init_norm(cfg, cfg.d_model, dev)
-            layer.mlp = C.init_mlp(cfg, generator, dev)
+            if layer.spec.ffn == "moe":
+                layer.moe = M.init_moe(cfg, generator, dev)
+            else:
+                layer.mlp = C.init_mlp(cfg, generator, dev)
     if not cfg.tie_embeddings:
         p.lm_head = C._param((cfg.d_model, cfg.padded_vocab), dev)
         p.lm_head.normal_(generator=generator).div_(math.sqrt(cfg.d_model))
@@ -110,18 +125,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> LM
 
 def cast_params(cfg: ModelConfig, params: LM, dtype: torch.dtype, device=None) -> LM:
     """``params`` on ``device`` (``None``: the card, raising without one)
-    with every weight in ``dtype`` and the norm scales kept in float32, in
-    one copy (none where a tensor is already so).  The forward functions
-    cast each weight to the activations' dtype at every matmul, which is
-    then free; the values are those of casting float32 weights per matmul."""
-    dev = resolve_device(device)
-    out = LM(cfg, device="meta")
-    state = {}
-    for name, t in params.state_dict().items():
-        keep = name.endswith("scale")
-        state[name] = t.to(device=dev, dtype=torch.float32 if keep else dtype)
-    out.load_state_dict(state, assign=True)
-    return out
+    with every weight in ``dtype`` and those the reference computes with in
+    float32 (:data:`~repro_torch.models.common.FLOAT32_PARAMS`: norm
+    scales, router, ``A_log``, ``dt_bias``) kept in float32, in one copy.
+    The forward functions cast each weight to the activations' dtype at
+    every use, which is then free; the values are those of casting float32
+    weights per use."""
+    return C.cast_module(params, LM(cfg, device="meta"), dtype, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +141,17 @@ def _ffn(cfg: ModelConfig, layer: Layer, x: torch.Tensor) -> torch.Tensor:
     if layer.spec.ffn == "none":
         return x
     h = C.norm_apply(cfg, x, layer.post_norm.scale)
+    if layer.spec.ffn == "moe":
+        return x + M.moe_forward(cfg, layer.moe, h)
     return x + C.mlp_forward(layer.mlp, h)
+
+
+def _rot(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE angles of ``positions``, shared by every attention layer; None
+    for a model without attention (mamba2)."""
+    if not cfg.n_heads:
+        return None
+    return C.rope_angles(positions, cfg.hd, cfg.rope_theta)
 
 
 def _embed(params: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -150,13 +170,15 @@ def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
 def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int,
                     dtype) -> Tuple[torch.Tensor, Cache]:
     x = _embed(params, tokens, dtype)
-    rot = C.rope_angles(torch.arange(tokens.shape[1], device=tokens.device)[None, :], cfg.hd,
-                        cfg.rope_theta)
+    rot = _rot(cfg, torch.arange(tokens.shape[1], device=tokens.device)[None, :])
     caches = []
     for layer in params.layers:
         h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-        out, kv = C.attn_prefill(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
-        caches.append(kv)
+        if layer.spec.mixer == "ssd":
+            out, lc = S.ssd_forward(cfg, layer.ssd, h, return_cache=True)
+        else:
+            out, lc = C.attn_prefill(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+        caches.append(lc)
         x = _ffn(cfg, layer, x + out)
     return x, caches
 
@@ -172,8 +194,10 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0,
             dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
-    """The whole prompt: last-position logits (B, V) and each layer's K/V
-    at prompt length."""
+    """The whole prompt: last-position logits (B, V) and each layer's cache:
+    K/V at prompt length, or an SSD layer's final state and conv tail (the
+    decode handoff).  An SSD model's prompt length is a multiple of
+    ``ssm_chunk``."""
     x, caches = _prefill_layers(cfg, params, tokens, q_chunk, dtype)
     return _head(cfg, params, x[:, -1:, :])[:, 0, :], caches
 
@@ -183,14 +207,18 @@ def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
                device=None) -> Cache:
-    """Zeroed K/V per layer on ``device`` (``None``: the card, raising
-    without one): ``s_max`` positions, or ``min(window, s_max)`` for a
-    sliding-window layer, whose cache ``attn_decode`` keeps as a ring
-    buffer (it wraps once a position reaches the window)."""
+    """A zeroed cache per layer on ``device`` (``None``: the card, raising
+    without one).  K/V of ``s_max`` positions, or ``min(window, s_max)`` for
+    a sliding-window layer, whose cache ``attn_decode`` keeps as a ring
+    buffer (it wraps once a position reaches the window); an SSD layer's
+    float32 state and conv tail in ``dtype``."""
     dev = resolve_device(device)
     cache = []
     for spec in cfg.layer_specs():
         _check_spec(spec)
+        if spec.mixer == "ssd":
+            cache.append(S.init_ssd_cache(cfg, batch, dtype, dev))
+            continue
         local = spec.mixer == "attn_local" and cfg.window
         length = min(cfg.window, s_max) if local else s_max
         shape = (batch, length, cfg.n_kv_heads, cfg.hd)
@@ -206,9 +234,12 @@ def decode_step(cfg: ModelConfig, params: LM, token: torch.Tensor, pos: int, cac
     logits for the NEXT token.  The cache is updated in place and returned."""
     pos = int(pos)
     x = _embed(params, token[:, None], dtype)
-    rot = C.rope_angles(torch.full((1, 1), pos, device=token.device), cfg.hd, cfg.rope_theta)
+    rot = _rot(cfg, torch.full((1, 1), pos, device=token.device))
     for layer, lc in zip(params.layers, cache):
         h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-        out, _ = C.attn_decode(cfg, layer.attn, h, lc, pos, _KIND[layer.spec.mixer], rot)
+        if layer.spec.mixer == "ssd":
+            out, _ = S.ssd_decode(cfg, layer.ssd, h, lc)
+        else:
+            out, _ = C.attn_decode(cfg, layer.attn, h, lc, pos, _KIND[layer.spec.mixer], rot)
         x = _ffn(cfg, layer, x + out)
     return _head(cfg, params, x)[:, 0, :], cache

@@ -1,13 +1,14 @@
-"""Uniform model interface over the assembly modules.
-
-The decoder-only LM is ported; the encoder-decoder model (whisper) is not
-yet, and asking for it raises (ROADMAP A13)."""
+"""Uniform model interface over the assembly modules: the decoder-only LM
+(:mod:`repro_torch.models.lm`) and the encoder-decoder
+(:mod:`repro_torch.models.whisper`), as ``repro.models.registry``.  The
+port's interface adds ``cast_params``, the one-time weight cast the
+serving engine makes."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 
 __all__ = ["Model", "get_model"]
 
@@ -18,13 +19,14 @@ class Model(NamedTuple):
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    cast_params: Callable
 
 
-_LM = Model(lm.init_params, lm.forward, lm.prefill, lm.decode_step, lm.init_cache)
+_LM = Model(lm.init_params, lm.forward, lm.prefill, lm.decode_step, lm.init_cache,
+            lm.cast_params)
+_ENCDEC = Model(whisper.init_params, whisper.forward, whisper.prefill, whisper.decode_step,
+                whisper.init_cache, whisper.cast_params)
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported yet (ROADMAP A13, whisper)")
-    return _LM
+    return _ENCDEC if cfg.is_encdec else _LM

@@ -33,11 +33,17 @@ index to record into — is DEPRECATED (it grants the serving tier mutation
 rights over data-prep provenance): it still works, wrapped in a
 single-entry catalog, and warns once per process.
 
+The engine serves every model family of the configs: the decoder-only LM
+(dense, SSD, MoE and hybrid stacks) and the encoder-decoder, whose
+``generate`` takes the stub frontend's ``frames`` and encodes them into the
+cache before the prompt is consumed.  It serves; it does not train.
+
 The weights are cast to the engine's ``dtype`` once, when it is built (the
-norm scales stay float32): the values of the reference's per-matmul cast,
-at half the bytes a bf16 step reads.  Sampling draws from a
-``torch.Generator`` on the engine's device: seeded and deterministic, but
-not the reference's ``jax.random`` stream.
+norm scales, the MoE router and the SSD's ``A_log``/``dt_bias`` stay
+float32): the values of the reference's per-matmul cast, at half the
+bytes a bf16 step reads.  Sampling draws from a ``torch.Generator`` on the
+engine's device: seeded and deterministic, but not the reference's
+``jax.random`` stream.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.opcat import AttrMap, CaptureInfo, OpCategory
 from repro_torch.core.pipeline import ProvenanceIndex
 from repro_torch.dataprep.table import Table
-from repro_torch.models.lm import LM, cast_params
+from repro_torch.models import whisper as W
 from repro_torch.models.registry import get_model
 from repro_torch.provenance.catalog import (
     BoundaryHandle,
@@ -99,11 +105,12 @@ class GenerationResult:
 
 class ServeEngine:
     """``ServeEngine(cfg, params, max_seq, dtype=torch.bfloat16,
-    upstream=None, device=None)``: ``params`` is the port's ``LM`` (from
-    ``init_params`` or ``carry.lm_params_from_numpy``), copied once onto
-    ``device`` (``None``: the card, raising without one) in ``dtype``."""
+    upstream=None, device=None)``: ``params`` is the port's model of
+    ``cfg`` (an ``LM`` or a ``Whisper``, from ``get_model(cfg).init_params``
+    or ``carry.params_from_numpy``), copied once onto ``device`` (``None``:
+    the card, raising without one) in ``dtype``."""
 
-    def __init__(self, cfg: ModelConfig, params: LM, max_seq: int,
+    def __init__(self, cfg: ModelConfig, params, max_seq: int,
                  dtype=torch.bfloat16,
                  upstream=None,
                  prov_index: Optional[ProvenanceIndex] = None,
@@ -111,7 +118,7 @@ class ServeEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = get_model(cfg)
-        self.params = cast_params(cfg, params, dtype, self.device)
+        self.params = self.model.cast_params(cfg, params, dtype, self.device)
         self.max_seq = max_seq
         self.dtype = dtype
         self._init_provenance(f"serve:{cfg.name}", upstream=upstream,
@@ -212,18 +219,26 @@ class ServeEngine:
         request_ids: Optional[np.ndarray] = None,
         greedy: bool = True,
         sample_seed: int = 0,          # greedy=False: generator seed (temperature 1)
+        frames: Optional[np.ndarray] = None,   # enc-dec: stub frontend output
         record_provenance: bool = False,
         request_source: Optional[str] = None,  # existing dataset the requests
                                                # are rows of (else auto-added)
     ) -> GenerationResult:
         """The prompts are consumed token by token through ``decode_step``
         (left pads become token 0 and are not masked), then ``n_new``
-        tokens are generated."""
+        tokens are generated.  An encoder-decoder first encodes ``frames``
+        (B, enc_seq, d_model) into the cache; without them it raises
+        ``AssertionError``, as the reference does."""
         cfg = self.cfg
         prompts = np.asarray(prompts)
         b, sp = prompts.shape
         cache = self.model.init_cache(cfg, b, self.max_seq, dtype=self.dtype,
                                       device=self.device)
+        if cfg.is_encdec:
+            if frames is None:
+                raise AssertionError("enc-dec serving needs frames")
+            W.encode_into_cache(cfg, self.params, torch.as_tensor(
+                np.asarray(frames), dtype=self.dtype, device=self.device), cache)
         toks = torch.as_tensor(np.where(prompts < 0, 0, prompts).astype(np.int64),
                                device=self.device)
         logits = None

@@ -444,8 +444,6 @@ def test_engine_default_device_is_the_card():
         ServeEngine(cfg, params, max_seq=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         object.__new__(ServeEngine)._init_provenance("serve:x")
-    with pytest.raises(NotImplementedError, match="whisper"):
-        ServeEngine(get_smoke_config("whisper-small"), params, max_seq=4, device=CPU)
 
 
 # ===========================================================================
@@ -463,6 +461,16 @@ def test_launch_serve_runs_on_the_cpu(tier):
     assert out.returncode == 0, out.stderr
     assert "generated (4, 16) on cpu" in out.stdout
     assert ("tier: 64 lineage probes" in out.stdout) == tier
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b",
+                                  "qwen3-moe-235b-a22b", "dbrx-132b"])
+def test_launch_serve_runs_every_decoder_family(arch):
+    """SSD, hybrid and MoE smokes through the launcher, with the tier
+    (whisper's run is in ``tests/test_torch_whisper.py``)."""
+    out = _launch("--arch", arch, "--device", "cpu", "--tier")
+    assert out.returncode == 0, out.stderr
+    assert "generated (4, 16) on cpu" in out.stdout and "tier: 64 lineage probes" in out.stdout
 
 
 def test_launch_serve_mesh_waits_for_a14():

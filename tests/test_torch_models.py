@@ -1,4 +1,5 @@
-"""The port's configs and dense LM against ``repro``'s, on the CPU.
+"""The port's configs and dense LM against ``repro``'s, on the CPU; every
+family serving through the uniform interface.
 
 Every config (full and smoke) must equal the reference's field by field,
 with equal parameter counts.  For the dense smoke configs the reference's
@@ -10,8 +11,11 @@ a relative max error of 5e-2 in bfloat16 (max |port - ref| over max |ref|:
 about a dozen bf16 rounding steps, 2^-8 each, for matmuls that accumulate in
 another order; the largest seen on these configs is 2.4e-2).  The port's own
 decode must equal its forward (the twin of ``tests/test_models.py``'s
-decode test), gemma3's sliding-window layers must wrap their ring buffer,
-and the layer kinds that are not ported must raise.
+decode test), and gemma3's sliding-window layers must wrap their ring
+buffer.  All ten smoke configs (dense, SSD, MoE, hybrid and
+encoder-decoder) must init, cache, prefill, decode and generate through
+``get_model`` and ``ServeEngine``; ``tests/test_torch_{ssd,moe,whisper}.py``
+hold those families to ``repro``.
 """
 import dataclasses
 
@@ -30,11 +34,11 @@ from repro_torch.models import common as C
 from repro_torch.models import lm as TL
 from repro_torch.models.carry import lm_params_from_numpy
 from repro_torch.models.registry import get_model
+from repro_torch.serve import ServeEngine
 
 CPU = "cpu"
 ALL_ARCHS = list(rarchs.ARCHS)
 DENSE = ["olmo-1b", "gemma3-1b", "gemma3-12b", "llama3-405b", "chameleon-34b"]
-UNPORTED = ["mamba2-370m", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "dbrx-132b"]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 BF16_REL = 5e-2
 B, S = 2, 16
@@ -353,21 +357,30 @@ def test_carry_rejects_a_tree_that_does_not_fit(carried):
         lm_params_from_numpy(cfg, short, CPU)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_ssd_and_moe_layers_raise(arch):
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_family_serves(arch):
+    """get_model's init_params, init_cache, prefill and decode_step, then a
+    bf16 ServeEngine's generate, on each smoke config: the shapes, finite
+    logits, tokens in the vocabulary; none raises."""
     cfg = treg.get_smoke_config(arch)
     model = get_model(cfg)
-    with pytest.raises(NotImplementedError, match="A13"):
-        model.init_params(cfg, torch.Generator().manual_seed(0), CPU)
-    with pytest.raises(NotImplementedError, match="A13"):
-        model.init_cache(cfg, 1, 4, device=CPU)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TL.LM(cfg, device="meta")
-
-
-def test_encdec_raises():
-    with pytest.raises(NotImplementedError, match="whisper"):
-        get_model(treg.get_smoke_config("whisper-small"))
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    toks = torch.from_numpy(tokens(cfg, s=8))
+    fr = torch.from_numpy(np.random.default_rng(0).normal(size=(B, cfg.enc_seq, cfg.d_model))
+                          .astype(np.float32)) if cfg.is_encdec else None
+    args = (fr, toks) if cfg.is_encdec else (toks,)
+    logits, caches = model.prefill(cfg, params, *args, dtype=torch.float32)
+    assert logits.shape == (B, cfg.padded_vocab) and len(caches) == cfg.n_layers
+    assert bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+    cache = model.init_cache(cfg, B, 8, dtype=torch.float32, device=CPU)
+    if cfg.is_encdec:
+        from repro_torch.models import whisper as TW
+        TW.encode_into_cache(cfg, params, fr, cache)
+    step, _ = model.decode_step(cfg, params, toks[:, 0], 0, cache, dtype=torch.float32)
+    assert step.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(step).all())
+    out = ServeEngine(cfg, params, max_seq=8, device=CPU).generate(
+        tokens(cfg, s=4), n_new=4, frames=None if fr is None else fr.numpy())
+    assert out.tokens.shape == (B, 4) and 0 <= out.tokens.min() and out.tokens.max() < cfg.vocab
 
 
 def test_default_device_is_the_card():
