@@ -128,6 +128,21 @@ PyTorch built for CUDA.  It
    the recurrent state (mamba2) and the cross K/V (whisper), idle share and
    peak memory; and the mamba2, jamba, qwen3-moe, dbrx and whisper smokes
    on the card against the CPU;
+   then (``train``) one float32 ``train_step`` (``n_micro`` 2) of the
+   olmo, gemma3-1b, mamba2, qwen3-moe and whisper smokes on the card
+   against the CPU port (loss, grad norm, updated params and moments,
+   1e-4), and OLMo-1B at full width trained at seq 4,096 and global batch
+   8 (train_4k's 256, cut; float32 master weights, bf16 activations and
+   moments, remat, ``n_micro`` 2) on batches from a ``TokenPipeline`` over
+   a 20,000-document corpus on the card: ms a step, tokens/s, the model
+   FLOPs (``FlopCounterMode``) against the bf16 peak, peak memory and the
+   profiler's idle share; under deterministic algorithms an 8-step
+   ``run_training`` with async checkpoints whose loss falls, its full
+   state restored bit for bit, and a run crashed at step 6 and resumed
+   from step 4 that ends on the same state bit for bit; every step's
+   batch lineage (Q2) on the fused walk equals the default session's,
+   4 documents' Q1 equals the inverse of those answers, and the consent
+   audit flags exactly the non-consenting contributors;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -151,6 +166,7 @@ gives them, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -159,8 +175,12 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# the train phase runs under torch.use_deterministic_algorithms(True), which
+# needs cuBLAS's workspace fixed before cuBLAS first runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -1271,22 +1291,18 @@ def timed_decode(engine, dev):
     return seconds
 
 
-def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
-    """``steps`` decode steps of ``engine`` (after one warm step) under
-    ``torch.profiler``: kernels and device-busy ms a step, the device's idle
+def profile_calls(run, steps, step_ms):
+    """``run(i)`` for i in [0, steps) under ``torch.profiler`` (the caller
+    warms up first): kernels and device-busy ms a step, the device's idle
     share of an unprofiled ``step_ms`` step, the host ops that take the
     most self CPU time a step and the kernels that take the most device
     time a step.  None where the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = engine.model.init_cache(engine.cfg, batch, s_max, dtype=engine.dtype, device=dev)
-    tok = torch.zeros(batch, dtype=torch.int64, device=dev)
-    engine._decode(tok, 0, cache)
-    torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for pos in range(1, steps + 1):
-            engine._decode(tok, pos, cache)
-        torch.cuda.synchronize(dev)
+        for i in range(steps):
+            run(i)
+        torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return None
@@ -1305,6 +1321,16 @@ def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
             "top_device": [{"kernel": name[:120], "calls_per_step": n / steps,
                             "device_ms_per_step": us / 1e3 / steps}
                            for name, (n, us) in top]}
+
+
+def profile_decode(engine, dev, batch, s_max, step_ms, steps=4):
+    """``steps`` decode steps of ``engine`` (after one warm step) under
+    ``torch.profiler`` (:func:`profile_calls`)."""
+    cache = engine.model.init_cache(engine.cfg, batch, s_max, dtype=engine.dtype, device=dev)
+    tok = torch.zeros(batch, dtype=torch.int64, device=dev)
+    engine._decode(tok, 0, cache)
+    torch.cuda.synchronize(dev)
+    return profile_calls(lambda i: engine._decode(tok, i + 1, cache), steps, step_ms)
 
 
 def engine_lineage(engine, prep, sink, src, walk, result, request_ids, dev):
@@ -1753,6 +1779,301 @@ def lm_families_phase(dev):
     out["tolerances"] = {"float32_decode": LM_FP32_REL, "card_vs_cpu": LM_CPU_REL,
                          "moe_forward_vs_plain": MOE_FP32_REL}
     del engine
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# -- the training path (phase 7l) -----------------------------------------------
+TRAIN_SMOKES = ("olmo-1b", "gemma3-1b", "mamba2-370m", "qwen3-moe-235b-a22b", "whisper-small")
+TRAIN_CPU_REL = 1e-4        # one float32 step on the card against the CPU
+TRAIN_SEQ = 4_096           # train_4k's sequence (repro/launch/shapes.py:42)
+TRAIN_BATCH = 8             # train_4k's global batch of 256, cut to 8
+TRAIN_STEPS = 8
+TRAIN_CORPUS = dict(n_docs=20_000, mean_len=384)
+BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def close_after_step(got, want, rel, what, mu=None, lr=0.0) -> float:
+    """Updated tensors ``got`` against ``want`` (dicts by parameter name),
+    each leaf within ``rel`` of its largest value.  Given the first moment
+    ``mu`` (the gradient, scaled) the parameters are held so only where
+    ``mu`` is at least 1e-3 of its leaf's largest: Adam divides a gradient
+    by its own magnitude, so two smaller gradients equal within ``rel`` may
+    move a parameter up to 2 x lr apart (held to 2.2 x lr).  Returns the
+    largest error over leaf maxima."""
+    worst = 0.0
+    for n, w in want.items():
+        g, w = got[n].detach().float().cpu(), w.detach().float().cpu()
+        big = torch.ones_like(w, dtype=torch.bool)
+        if mu is not None:
+            m = mu[n].detach().float().cpu().abs()
+            big = m > 1e-3 * m.max()
+        scale = float(w.abs().max()) + 1e-30
+        err_big = float((g - w)[big].abs().max()) if bool(big.any()) else 0.0
+        err_small = float((g - w)[~big].abs().max()) if bool((~big).any()) else 0.0
+        check(err_big <= rel * scale and err_small <= 2.2 * lr,
+              f"{what} {n}: {err_big} of {scale} (|mu| large), {err_small} (small, lr {lr})")
+        worst = max(worst, err_big / scale)
+    return worst
+
+
+def train_smoke_batch(cfg, seed, device):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], -np.ones((4, 1), np.int32)], axis=1)
+    out = {"tokens": toks, "labels": labels}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(size=(4, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def train_step_flops(cfg, opt, n_micro, batch, seq) -> int:
+    """The model FLOPs of one train step (forward and backward matmuls,
+    attention's S x S products included), counted by ``FlopCounterMode``
+    over a step on the meta device with remat off, so no recompute is
+    counted and nothing is allocated."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.lm import LM
+    from repro_torch.models.common import trainable
+    from repro_torch.train import TrainState, init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(cfg, remat=False)
+    params = trainable(LM(cfg, device="meta"))
+    state = TrainState(params, init_opt_state(params, opt))
+    toks = torch.zeros((batch, seq), dtype=torch.int32, device="meta")
+    counter = FlopCounterMode(display=False)
+    with counter:
+        make_train_step(cfg, opt, n_micro=n_micro)(state, {"tokens": toks, "labels": toks})
+    return counter.get_total_flops()
+
+
+def train_phase(dev):
+    """The training path.  (a) one float32 ``train_step`` (``n_micro`` 2) of
+    the olmo, gemma3-1b, mamba2, qwen3-moe and whisper smokes on the card
+    against the CPU port (loss, grad norm, updated params and moments).
+    (b) OLMo-1B at full width (float32 master weights, bf16 activations
+    and moments, remat ``"nothing"``, ``n_micro`` 2, ``q_chunk`` 0: train_4k's
+    settings) at seq 4,096 and global batch 8 (train_4k's 256, cut), its
+    batches from a ``TokenPipeline`` on the card over a 20,000-document
+    corpus, each step's batch recorded: ms a step and tokens/s (default
+    mode), the model FLOPs and their bound, the profiler's idle share, peak
+    memory; then under ``torch.use_deterministic_algorithms(True)`` an
+    uninterrupted 8-step ``run_training`` (async checkpoints every 4 steps
+    under ``build/train_smoke/``, ``keep=1``) whose loss falls, its full
+    state saved (snapshot and write timed) and restored bit for bit, and a
+    run crashed at step 6 and resumed from step 4 that ends on the same
+    state bit for bit.  (c) every trained step's lineage: Q2 through a walk
+    session on the fused kernel equals the default session's, 4 documents'
+    Q1 equals the inverse of the Q2 answers, and the consent audit flags
+    exactly the non-consenting contributors.  Returns the results and the
+    path's launch counts."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.data.pipeline import CorpusConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import trainable
+    from repro_torch.models.registry import get_model
+    from repro_torch.provenance.session import QuerySession
+    from repro_torch.train import (
+        AdamWConfig,
+        CheckpointManager,
+        LoopConfig,
+        TrainState,
+        init_opt_state,
+        init_train_state,
+        make_train_step,
+        run_training,
+    )
+    from repro_torch.train.checkpoint import flatten_tree
+
+    t_phase = time.perf_counter()
+    out = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
+    ops.reset_launch_counts()      # the train path starts here
+
+    # (a) the smokes: one float32 step on the card against the CPU
+    smokes = {}
+    for arch in TRAIN_SMOKES:
+        cfg = get_smoke_config(arch)
+        opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10, moment_dtype=torch.float32)
+        cpu = init_train_state(cfg, torch.Generator().manual_seed(SEED), opt, "cpu")
+        card_params = trainable(get_model(cfg).cast_params(cfg, cpu.params, torch.float32, dev))
+        card = TrainState(card_params, init_opt_state(card_params, opt))
+        step = make_train_step(cfg, opt, n_micro=2, dtype=torch.float32)
+        cpu_new, cpu_met = step(cpu, train_smoke_batch(cfg, SEED, "cpu"))
+        card_new, card_met = step(card, train_smoke_batch(cfg, SEED, dev))
+        lr = float(cpu_met["lr"])
+        rec = {k: rel_err(card_met[k].cpu(), cpu_met[k]) for k in ("loss", "grad_norm")}
+        check(max(rec.values()) < TRAIN_CPU_REL, f"{arch} smoke: card metrics != CPU {rec}")
+        check(float(card_met["lr"]) == lr, f"{arch} smoke: lr {float(card_met['lr'])} != {lr}")
+        rec["params"] = close_after_step(dict(card_new.params.named_parameters()),
+                                         dict(cpu_new.params.named_parameters()), TRAIN_CPU_REL,
+                                         f"{arch} smoke params", mu=cpu_new.opt.mu, lr=lr)
+        rec["mu"] = close_after_step(card_new.opt.mu, cpu_new.opt.mu, TRAIN_CPU_REL,
+                                     f"{arch} smoke mu")
+        rec["nu"] = close_after_step(card_new.opt.nu, cpu_new.opt.nu, 2 * TRAIN_CPU_REL,
+                                     f"{arch} smoke nu")
+        smokes[arch] = rec
+    out["smokes_card_vs_cpu"] = smokes
+    del cpu, card, cpu_new, card_new
+
+    # (b) OLMo-1B at full width on the provenance-carrying data path
+    cfg = get_config("olmo-1b")
+    check(cfg.remat and cfg.remat_policy == "nothing" and cfg.tie_embeddings,
+          f"olmo-1b: remat {cfg.remat} {cfg.remat_policy}, tied {cfg.tie_embeddings}")
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    t = time.perf_counter()
+    tp = TokenPipeline(CorpusConfig(vocab=cfg.vocab, seed=SEED, **TRAIN_CORPUS),
+                       seq_len=TRAIN_SEQ, device=dev)
+    pipeline_s = time.perf_counter() - t
+    check(tp.n_seq >= TRAIN_STEPS * TRAIN_BATCH, f"{tp.n_seq} sequences")
+
+    def batch_fn(s):
+        b = tp.batch_at(s, TRAIN_BATCH, record_provenance=True)
+        return {"tokens": b["tokens"], "labels": b["labels"]}
+
+    step = make_train_step(cfg, opt, n_micro=2, q_chunk=0)
+    flops = train_step_flops(cfg, opt, 2, TRAIN_BATCH, TRAIN_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cfg, gen, opt, dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_bytes = {"params_float32": sum(p.numel() * p.element_size()
+                                         for p in state.params.parameters()),
+                   "grads_float32": sum(p.numel() * 4 for p in state.params.parameters()),
+                   "moments_bf16": sum(t.numel() * t.element_size()
+                                       for m in (state.opt.mu, state.opt.nu) for t in m.values())}
+    seconds, losses = [], []
+    for s in range(4):          # one warm-up, three timed
+        batch = batch_fn(s)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t)
+    step_ms = statistics.median(seconds[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def one(i):
+        nonlocal state
+        state, _ = step(state, batch_fn(4 + i))
+
+    profile = profile_calls(one, 2, step_ms)
+    del state, one
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound_s = flops / BF16_PEAK_FLOPS
+    out["olmo_1b"] = {
+        "n_params": n_params, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "n_micro": 2,
+        "q_chunk": 0, "remat": cfg.remat_policy, "dtype": "bfloat16 activations, float32 "
+        "master weights, bfloat16 moments",
+        "reduced": {"global_batch": [256, TRAIN_BATCH]},
+        "corpus": {**TRAIN_CORPUS, "n_seq": tp.n_seq, "build_s": pipeline_s},
+        "ms_per_step": step_ms, "step_ms_all": [x * 1e3 for x in seconds],
+        "tokens_per_s": tokens / (step_ms / 1e3), "model_flops_per_step": flops,
+        "model_flops_per_token": flops / tokens,
+        "bound_ms": bound_s * 1e3, "bound_by": "operations",
+        "bound_share_of_step": bound_s * 1e3 / step_ms,
+        "max_memory_allocated_bytes": peak, "state_bytes": state_bytes,
+        "profile": profile, "timing_losses": losses}
+
+    # determinism, crash and resume, the full-state checkpoint
+    root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    loop = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=4)
+    quiet = lambda msg: None        # noqa: E731
+    torch.use_deterministic_algorithms(True)
+    try:
+        ck_a = CheckpointManager(str(root / "a"), keep=1)
+        out_a = run_training(step, init_train_state(cfg, gen.manual_seed(SEED), opt, dev),
+                             batch_fn, ck_a, loop, log=quiet)
+        final = out_a["final_state"]
+        la = out_a["losses"]
+        check(len(la) == TRAIN_STEPS and all(np.isfinite(la)), f"olmo-1b losses {la}")
+        check(np.mean(la[-3:]) < np.mean(la[:3]), f"olmo-1b: the loss did not fall: {la}")
+        check(ck_a.all_steps() == [TRAIN_STEPS], f"checkpoints {ck_a.all_steps()}")
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        ck_a.save(TRAIN_STEPS, final)           # the snapshot is the synchronous part
+        snapshot_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ck_a.wait()
+        write_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        restored = ck_a.restore(TRAIN_STEPS, like=final, device=dev)
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t) * 1e3
+        ckpt_bytes = sum(x.numel() * x.element_size() for _, x in flatten_tree(final))
+        for (k, x), (_, y) in zip(flatten_tree(final), flatten_tree(restored)):
+            check(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y),
+                  f"restored checkpoint: {k} differs")
+        del restored
+        shutil.rmtree(root / "a")
+
+        ck_b = CheckpointManager(str(root / "b"), keep=1)
+        start_b = init_train_state(cfg, gen.manual_seed(SEED), opt, dev)
+        crashed = None
+        try:
+            run_training(step, start_b, batch_fn, ck_b,
+                         dataclasses.replace(loop, fail_at_step=6), log=quiet)
+        except RuntimeError as e:           # the injected crash, and nothing else
+            if "injected failure at step 6" not in str(e):
+                raise
+            crashed = str(e)
+        check(crashed is not None, "the run did not crash at step 6")
+        out_b = run_training(step, start_b, batch_fn, ck_b, loop, log=quiet)
+        del start_b
+        check(out_b["resumed_from"] == 4, f"resumed from {out_b['resumed_from']}")
+        for (k, x), (_, y) in zip(flatten_tree(final), flatten_tree(out_b["final_state"])):
+            check(torch.equal(x, y), f"resumed run: {k} != the uninterrupted run's")
+        check(out_b["losses"] == la[4:], f"resumed losses {out_b['losses']} != {la[4:]}")
+        shutil.rmtree(root)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_ms = statistics.median(out_a["step_times"][1:]) * 1e3
+    del final, out_a, out_b
+    torch.cuda.empty_cache()
+    out["olmo_1b"].update({
+        "losses": la, "deterministic_ms_per_step": det_ms,
+        "crash_resume": {"crashed": crashed, "resumed_from": 4, "bit_equal": True},
+        "checkpoint": {"bytes": ckpt_bytes, "snapshot_ms": snapshot_ms, "write_ms": write_ms,
+                       "restore_ms": restore_ms, "restored_bit_equal": True}})
+
+    # (c) every trained step's lineage on the card
+    walk = QuerySession(tp.index, use_hopcache=False, fused_walk=True)
+    t = time.perf_counter()
+    q2 = {s: tp.batch_to_documents(s, walk) for s in range(TRAIN_STEPS)}
+    walk_s = time.perf_counter() - t
+    check(walk.counters["fused_walk"] == TRAIN_STEPS, f"walk session {walk.counters}")
+    for s in range(TRAIN_STEPS):
+        check(torch.equal(q2[s], tp.batch_to_documents(s)),
+              f"step {s}: the walk's Q2 != the default session's")
+    docs = sorted({int(q2[s][0]) for s in range(4)} | {int(q2[0][-1])})[:4]
+    check(len(docs) == 4, f"documents {docs}")
+    for d in docs:
+        want = [s for s in range(TRAIN_STEPS) if bool((q2[s] == d).any())]
+        check(tp.document_to_batches(d) == want and tp.document_to_batches(d, walk) == want,
+              f"document {d}: Q1 != the inverse of the Q2 answers {want}")
+    consent = tp.index.datasets["corpus"].table.col("consent") > 0
+    non_consenting = set(torch.nonzero(~consent).reshape(-1).tolist())
+    flagged = {}
+    for s in range(TRAIN_STEPS):
+        got = {int(d) for d in q2[s] if not bool(consent[d])}
+        check(got == non_consenting & set(q2[s].tolist()), f"step {s}: consent audit")
+        flagged[s] = len(got)
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    check(counts.get("batched_walk", 0) > 0, f"the train path never launched batched_walk {counts}")
+    out["lineage"] = {"steps": TRAIN_STEPS, "docs_per_batch": [len(q2[s]) for s in q2],
+                      "walk_q2_s": walk_s, "walk_counters": dict(walk.counters),
+                      "default_counters": dict(tp.index.session().counters),
+                      "q1_documents": docs, "non_consenting_flagged": flagged}
+    out["tolerances"] = {"card_vs_cpu": TRAIN_CPU_REL}
+    out["seconds"] = time.perf_counter() - t_phase
+    del tp, walk
     torch.cuda.empty_cache()
     return out, counts
 
@@ -2933,6 +3254,14 @@ def main() -> int:
     emit({"phase": "lm_families", "card": card, "seconds": time.perf_counter() - t,
           **families, "launch_counts": fam_counts})
 
+    # -- 7l. training: one float32 step of five smokes on the card against the
+    # CPU; OLMo-1B at full width (seq 4,096, global batch 8) on a
+    # TokenPipeline on the card, deterministic crash and resume, the full
+    # state checkpointed and restored; every step's batch lineage on the
+    # fused walk
+    train, train_counts = train_phase(dev)
+    emit({"phase": "train", "card": card, **train, "launch_counts": train_counts})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -3170,7 +3499,8 @@ def main() -> int:
                 "attribute": attr_counts.get(k, 0), "spill_hopcache": spill_hc_counts.get(k, 0),
                 "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
                 "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
-                "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0)}
+                "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0),
+                "train": train_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -3188,7 +3518,8 @@ def main() -> int:
                               "serving_tier": serving_counts.get("batched_walk", 0),
                               "sharded": sharded_counts.get("batched_walk", 0),
                               "lm_serving": lm_counts.get("batched_walk", 0),
-                              "lm_families": fam_counts.get("batched_walk", 0)},
+                              "lm_families": fam_counts.get("batched_walk", 0),
+                              "train": train_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -3203,7 +3534,8 @@ def main() -> int:
                               "serving_tier": serving_counts.get("bitmatmul", 0),
                               "sharded": sharded_counts.get("bitmatmul", 0),
                               "lm_serving": lm_counts.get("bitmatmul", 0),
-                              "lm_families": fam_counts.get("bitmatmul", 0)},
+                              "lm_families": fam_counts.get("bitmatmul", 0),
+                              "train": train_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -3233,7 +3565,7 @@ def main() -> int:
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
                     ("sharded", sharded_counts), ("lm_serving", lm_counts),
-                    ("lm_families", fam_counts)):
+                    ("lm_families", fam_counts), ("train", train_counts)):
         check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

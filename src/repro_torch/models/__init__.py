@@ -4,4 +4,7 @@ encoder-decoder (:mod:`repro_torch.models.whisper`) on the shared
 components of :mod:`repro_torch.models.common`, the uniform interface
 :func:`~repro_torch.models.registry.get_model`, and
 :func:`~repro_torch.models.carry.params_from_numpy`, which carries a
-parameter tree given as numpy arrays into the port's modules."""
+parameter tree given as numpy arrays into the port's modules
+(:func:`~repro_torch.models.carry.params_to_numpy` carries it back).  The
+``forward`` functions are differentiable, for training (:mod:`repro_torch.train`);
+prefill, decode and the encoder run without a gradient."""

@@ -15,11 +15,19 @@ axis, ``enc_norm``, ``final_norm``) and builds the
 :class:`~repro_torch.models.whisper.Whisper`: ``enc_layers.{name}[j]``
 becomes ``enc_layers.{j}.{name}``.  :func:`params_from_numpy` picks one by
 the config.  Every parameter of the port must be given and nothing else
-may be; dtypes are kept.  It takes numpy only and reads no other package.
+may be; dtypes are kept (a bfloat16 leaf, which numpy holds only through
+an extension dtype, is read through its 16-bit pattern).  It takes numpy
+only and reads no other package.
+
+The other way, :func:`params_to_numpy` turns the port's module, or any
+tensors keyed by its parameter names (the optimizer's moments), back into
+the reference's nested tree, blocks stacked again and a norm without
+parameters an empty dict; :func:`named_from_numpy` carries such a tree in
+as tensors keyed by the port's parameter names, which is how moments cross.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -27,10 +35,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models.common import Norm
 from repro_torch.models.lm import LM
 from repro_torch.models.whisper import Whisper
 
-__all__ = ["lm_params_from_numpy", "whisper_params_from_numpy", "params_from_numpy"]
+__all__ = ["lm_params_from_numpy", "whisper_params_from_numpy", "params_from_numpy",
+           "named_from_numpy", "params_to_numpy"]
 
 
 def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -52,17 +62,21 @@ def _unstack(sub: Mapping, n: int, what: str, layer_name, state: Dict[str, np.nd
             state[f"{layer_name(j)}.{name}"] = arr[j]
 
 
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A copy of ``arr`` on ``device``; a bfloat16 array (an extension dtype
+    of numpy) through its bit pattern."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
 def _load(module: nn.Module, state: Dict[str, np.ndarray], device) -> nn.Module:
-    module.load_state_dict(
-        {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.items()},
-        strict=True, assign=True)
+    module.load_state_dict({k: _tensor(v, device) for k, v in state.items()},
+                           strict=True, assign=True)
     return module
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
-    """The reference's LM parameter tree (numpy leaves) as an ``LM`` on
-    ``device`` (``None``: the card, raising without one)."""
-    dev = resolve_device(device)
+def _lm_state(cfg: ModelConfig, tree: Mapping) -> Dict[str, np.ndarray]:
     per_block = len(cfg.block)
     state: Dict[str, np.ndarray] = {}
     for key, sub in tree.items():
@@ -77,13 +91,16 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
             _flatten(sub, f"{key}.", state)
         else:
             state[key] = np.asarray(sub)
-    return _load(LM(cfg, device="meta"), state, dev)
+    return state
 
 
-def whisper_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> Whisper:
-    """The reference's encoder-decoder parameter tree (numpy leaves) as a
-    ``Whisper`` on ``device`` (``None``: the card, raising without one)."""
-    dev = resolve_device(device)
+def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
+    """The reference's LM parameter tree (numpy leaves) as an ``LM`` on
+    ``device`` (``None``: the card, raising without one)."""
+    return _load(LM(cfg, device="meta"), _lm_state(cfg, tree), resolve_device(device))
+
+
+def _whisper_state(cfg: ModelConfig, tree: Mapping) -> Dict[str, np.ndarray]:
     state: Dict[str, np.ndarray] = {}
     for key, sub in tree.items():
         if key in ("enc_layers", "dec_layers"):
@@ -93,10 +110,82 @@ def whisper_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> W
             _flatten(sub, f"{key}.", state)
         else:
             state[key] = np.asarray(sub)
-    return _load(Whisper(cfg, device="meta"), state, dev)
+    return state
+
+
+def whisper_params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> Whisper:
+    """The reference's encoder-decoder parameter tree (numpy leaves) as a
+    ``Whisper`` on ``device`` (``None``: the card, raising without one)."""
+    return _load(Whisper(cfg, device="meta"), _whisper_state(cfg, tree), resolve_device(device))
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None):
     """The reference's parameter tree of either kind, by ``cfg.is_encdec``."""
     fn = whisper_params_from_numpy if cfg.is_encdec else lm_params_from_numpy
     return fn(cfg, tree, device)
+
+
+def named_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """A tree shaped as the reference's parameters (e.g. an Adam moment) as
+    tensors on ``device`` (``None``: the card, raising without one), keyed
+    by the port's parameter names in the module's order; dtypes kept."""
+    state = _whisper_state(cfg, tree) if cfg.is_encdec else _lm_state(cfg, tree)
+    names = [n for n, _ in (Whisper if cfg.is_encdec else LM)(cfg, device="meta")
+             .named_parameters()]
+    if set(names) != set(state):
+        raise ValueError(f"tree leaves {sorted(set(state) ^ set(names))} do not match the model")
+    dev = resolve_device(device)
+    return {n: _tensor(state[n], dev) for n in names}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """float32 for bfloat16 (exact), which numpy cannot hold by itself."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _put(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def params_to_numpy(cfg: ModelConfig,
+                    params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
+    """The inverse of :func:`params_from_numpy`: the port's module, or
+    tensors keyed by its parameter names, as the reference's nested tree of
+    numpy arrays (bfloat16 as float32, exactly), the layers stacked on the
+    reference's leading axes again and each norm without parameters an
+    empty dict."""
+    named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+    layout = (Whisper if cfg.is_encdec else LM)(cfg, device="meta")
+    per_block = len(cfg.block)
+    n_stacked = cfg.n_blocks * per_block
+
+    def path_of(name: str):
+        """(reference path, stack index or None) of a port parameter or module name."""
+        parts = name.split(".")
+        if parts[0] in ("enc_layers", "dec_layers"):
+            return [parts[0], *parts[2:]], int(parts[1])
+        if parts[0] == "layers":
+            k = int(parts[1])
+            if k < n_stacked:
+                j, i = divmod(k, per_block)
+                return ["blocks", f"l{i}", *parts[2:]], j
+            return [f"tail{k - n_stacked}", *parts[2:]], None
+        return parts, None
+
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    tree: Dict = {}
+    for mod_name, mod in layout.named_modules():
+        if isinstance(mod, Norm) and mod.scale is None:
+            _put(tree, path_of(mod_name)[0], {})
+    for name in (n for n, _ in layout.named_parameters()):
+        path, j = path_of(name)
+        if j is None:
+            _put(tree, path, _numpy(named[name]))
+        else:
+            stacks.setdefault(tuple(path), {})[j] = _numpy(named[name])
+    for path, by_index in stacks.items():
+        _put(tree, list(path), np.stack([by_index[j] for j in sorted(by_index)]))
+    return tree

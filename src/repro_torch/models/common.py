@@ -5,8 +5,9 @@ The port of ``repro.models.common``.  The arithmetic is plain functions on
 tensors, taking ``(cfg, p, ...)`` as the reference package does; the
 weights live in small ``nn.Module``s whose parameter names are the
 reference's dict keys (``wq``, ``wk``, ``wv``, ``wo``, ``q_scale``, ``wi``,
-``wg``, ``scale``).  Parameters never require a gradient: this package
-serves, it does not train.
+``wg``, ``scale``).  Parameters are built without a gradient, as serving
+needs them; :func:`trainable` turns it on for training, and
+:func:`remat_call` runs a block under the config's rematerialisation.
 
 Weights may be held in float32 and cast per matmul to the activations'
 dtype (``w.to(x.dtype)``, the reference's ``.astype(dt)``), or cast once up
@@ -29,12 +30,15 @@ Attention serves four duties from one implementation:
 """
 from __future__ import annotations
 
+import copy
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 
@@ -60,6 +64,9 @@ __all__ = [
     "mlp_forward",
     "FLOAT32_PARAMS",
     "cast_module",
+    "trainable",
+    "rebind",
+    "remat_call",
 ]
 
 NEG_INF = -1e30     # the reference's mask fill, applied to float32 scores
@@ -378,3 +385,59 @@ def cast_module(params: nn.Module, out: nn.Module, dtype: torch.dtype, device) -
         state[name] = t.to(device=device, dtype=torch.float32 if keep else dtype)
     out.load_state_dict(state, assign=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training: gradients and rematerialisation
+# ---------------------------------------------------------------------------
+def trainable(params: nn.Module) -> nn.Module:
+    """Turn on ``requires_grad`` for every parameter of ``params`` (in
+    place) and return it.  Serving keeps them off."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+
+
+def rebind(like: nn.Module, named: Mapping[str, torch.Tensor]) -> nn.Module:
+    """A module laid out as ``like`` (the same classes, layer specs and
+    parameter names) whose parameters are the tensors of ``named``, keyed by
+    ``like``'s parameter names, each requiring a gradient iff ``like``'s
+    does.  ``like`` is left as it was; no tensor is copied."""
+    def clone(m: nn.Module, prefix: str) -> nn.Module:
+        new = copy.copy(m)      # shares every attribute; the two dicts below are replaced
+        new._parameters = {
+            k: None if p is None else nn.Parameter(named[prefix + k], requires_grad=p.requires_grad)
+            for k, p in m._parameters.items()}
+        new._modules = {k: clone(c, f"{prefix}{k}.") for k, c in m._modules.items()}
+        return new
+    return clone(like, "")
+
+
+# the weight products of a layer: 2-D matmuls with no batch dimension (a
+# (B, S, D) @ (D, F) product reaches aten as one mm), which is what the
+# reference's ``dots_with_no_batch_dims_saveable`` keeps; the attention
+# and expert products are batched (bmm) and recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(cfg: ModelConfig, fn: Callable, x: torch.Tensor, policy: Optional[str] = None):
+    """``fn(x)``, rematerialised in the backward pass as the reference's
+    ``jax.checkpoint`` of a block is when ``cfg.remat`` is set: policy
+    ``"nothing"`` saves only ``x``, ``"dots"`` also the weight products.
+    ``policy`` overrides ``cfg.remat_policy``.  Without a gradient to take
+    (``torch.no_grad``) it is a plain call."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn(x)
+    policy = policy or cfg.remat_policy
+    if policy == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=ctx)
+    if policy != "nothing":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return ckpt.checkpoint(fn, x, use_reentrant=False)

@@ -14,13 +14,14 @@ the cache is a list with one dict per layer: ``{"k", "v"}`` for an
 attention layer, ``{"state", "conv"}`` for an SSD layer.
 
 Four entry points, as in the reference:
-  forward(cfg, params, tokens)                 -> logits           (full sequence)
+  forward(cfg, params, tokens)                 -> logits           (full sequence, differentiable)
   prefill(cfg, params, tokens)                 -> logits, caches
   decode_step(cfg, params, token, pos, cache)  -> logits, cache    (cache written in place)
   init_cache(cfg, batch, s_max, device=...)    -> cache
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -162,7 +163,7 @@ def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     x = C.norm_apply(cfg, x, params.final_norm.scale)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = (x @ w.to(x.dtype)).float()
-    if cfg.padded_vocab != cfg.vocab:   # the padding rows never win
+    if cfg.padded_vocab != cfg.vocab:   # the padding rows never win (and get no gradient)
         logits[..., cfg.vocab:] = C.NEG_INF
     return logits
 
@@ -183,11 +184,40 @@ def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk:
     return x, caches
 
 
-@torch.no_grad()
+def _apply_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, q_chunk: int,
+                 rot) -> torch.Tensor:
+    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+    if layer.spec.mixer == "ssd":
+        x = x + S.ssd_forward(cfg, layer.ssd, h)
+    else:
+        x = x + C.attn_forward(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+    return _ffn(cfg, layer, x)
+
+
+def _apply_block(cfg: ModelConfig, block: nn.ModuleList, q_chunk: int, rot,
+                 x: torch.Tensor) -> torch.Tensor:
+    for layer in block:
+        x = _apply_layer(cfg, layer, x, q_chunk, rot)
+    return x
+
+
 def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0,
             dtype=torch.bfloat16) -> torch.Tensor:
-    """Causal logits (B, S, V) float32 for tokens (B, S) on the params' device."""
-    x, _ = _prefill_layers(cfg, params, tokens, q_chunk, dtype)
+    """Causal logits (B, S, V) float32 for tokens (B, S) on the params' device:
+    the training forward, differentiable.  The embedding is cast to ``dtype``
+    BEFORE the gather, as the reference does: the values equal a gather
+    then a cast, but the order sets the dtype in which the gradients of
+    repeated tokens add.  With ``cfg.remat`` each block of ``cfg.block`` is
+    rematerialised in the backward pass (:func:`~.common.remat_call`); the
+    tail is not, as in the reference."""
+    x = params.embed.to(dtype)[tokens]
+    rot = _rot(cfg, torch.arange(tokens.shape[1], device=tokens.device)[None, :])
+    per = len(cfg.block)
+    for j in range(cfg.n_blocks):
+        block = params.layers[j * per:(j + 1) * per]
+        x = C.remat_call(cfg, functools.partial(_apply_block, cfg, block, q_chunk, rot), x)
+    for layer in params.layers[cfg.n_blocks * per:]:
+        x = _apply_layer(cfg, layer, x, q_chunk, rot)
     return _head(cfg, params, x)
 
 

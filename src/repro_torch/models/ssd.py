@@ -126,11 +126,13 @@ def ssd_forward(cfg: ModelConfig, p: SSD, x: torch.Tensor, return_cache: bool = 
     dA_cs = torch.cumsum(dt * A, dim=2)                          # (B,C,Q,H)
 
     # within-chunk: L[l, s'] = exp(dA_cs[l] - dA_cs[s']) for s' <= l.  Above
-    # the diagonal the exponent is positive and may overflow to inf: where()
-    # drops it, a multiply by the mask would give inf * 0 = NaN
+    # the diagonal the exponent is positive and may overflow to inf, so it
+    # is masked to -inf BEFORE the exp: the values equal the reference's
+    # where(tril, exp(seg), 0) bit for bit, and the gradient stays finite
+    # where the reference's is 0 * inf = NaN
     seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]      # (B,C,Q,Q,H)
     tril = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tril[:, :, None], torch.exp(seg), 0.0).to(dt_)
+    L = torch.exp(torch.where(tril[:, :, None], seg, float("-inf"))).to(dt_)
     xdt = xs * dt[..., None].to(dt_)                             # (B,C,Q,H,P)
     cb = torch.einsum("bcln,bcsn->bcls", Cm, Bm)                 # (B,C,Q,Q)
     y = torch.einsum("bclsh,bcshp->bclhp", cb[..., None] * L, xdt)

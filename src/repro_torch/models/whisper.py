@@ -19,6 +19,7 @@ enc_seq, KV, hd), computed once by :func:`encode_into_cache`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -119,29 +120,60 @@ def _embed(cfg: ModelConfig, params: Whisper, tokens: torch.Tensor, dtype) -> to
 # ---------------------------------------------------------------------------
 # Encoder (frames already embedded by the stub frontend)
 # ---------------------------------------------------------------------------
+def _enc_layer(cfg: ModelConfig, layer: EncLayer, q_chunk: int, x: torch.Tensor) -> torch.Tensor:
+    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+    x = x + C.attn_forward(cfg, layer.attn, h, kind="bidir", q_chunk=q_chunk)
+    h = C.norm_apply(cfg, x, layer.post_norm.scale)
+    return x + C.mlp_forward(layer.mlp, h)
+
+
+def _encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
+            q_chunk: int) -> torch.Tensor:
+    """The differentiable encoder; with ``cfg.remat`` each layer is
+    rematerialised, saving nothing (the reference's policy for this family
+    whatever ``cfg.remat_policy`` says)."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + _sinusoid(pos, cfg.d_model, frames.dtype)[None]
+    for layer in params.enc_layers:
+        x = C.remat_call(cfg, functools.partial(_enc_layer, cfg, layer, q_chunk), x,
+                         policy="nothing")
+    return C.norm_apply(cfg, x, params.enc_norm.scale)
+
+
 @torch.no_grad()
 def encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
            q_chunk: int = 0) -> torch.Tensor:
     """frames (B, S_enc, D), in the activations' dtype -> (B, S_enc, D)."""
-    pos = torch.arange(frames.shape[1], device=frames.device)
-    x = frames + _sinusoid(pos, cfg.d_model, frames.dtype)[None]
-    for layer in params.enc_layers:
-        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-        x = x + C.attn_forward(cfg, layer.attn, h, kind="bidir", q_chunk=q_chunk)
-        h = C.norm_apply(cfg, x, layer.post_norm.scale)
-        x = x + C.mlp_forward(layer.mlp, h)
-    return C.norm_apply(cfg, x, params.enc_norm.scale)
+    return _encode(cfg, params, frames, q_chunk)
 
 
 # ---------------------------------------------------------------------------
 # Decoder
 # ---------------------------------------------------------------------------
-@torch.no_grad()
+def _dec_layer(cfg: ModelConfig, layer: DecLayer, enc: torch.Tensor, q_chunk: int, rot,
+               x: torch.Tensor) -> torch.Tensor:
+    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+    x = x + C.attn_forward(cfg, layer.attn, h, "causal", q_chunk, rot)
+    h = C.norm_apply(cfg, x, layer.cross_norm.scale)
+    x = x + C.cross_attn_forward(cfg, layer.cross, h, enc)
+    h = C.norm_apply(cfg, x, layer.post_norm.scale)
+    return x + C.mlp_forward(layer.mlp, h)
+
+
 def forward(cfg: ModelConfig, params: Whisper, frames: torch.Tensor, tokens: torch.Tensor,
             q_chunk: int = 0, dtype=torch.bfloat16) -> torch.Tensor:
     """Causal logits (B, S, V) float32 for tokens (B, S) after frames
-    (B, enc_seq, D), on the params' device."""
-    x, _ = _prefill_layers(cfg, params, frames, tokens, q_chunk, dtype)
+    (B, enc_seq, D), on the params' device: the training forward,
+    differentiable through the encoder.  The embedding is cast before the
+    gather, as the reference does; with ``cfg.remat`` every encoder and
+    decoder layer is rematerialised, saving nothing."""
+    enc = _encode(cfg, params, frames.to(dtype), q_chunk)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = params.embed.to(dtype)[tokens] + _sinusoid(pos, cfg.d_model, dtype)[None]
+    rot = C.rope_angles(pos[None, :], cfg.hd, cfg.rope_theta)
+    for layer in params.dec_layers:
+        x = C.remat_call(cfg, functools.partial(_dec_layer, cfg, layer, enc, q_chunk, rot), x,
+                         policy="nothing")
     return _logits(cfg, params, C.norm_apply(cfg, x, params.final_norm.scale))
 
 

@@ -3,7 +3,8 @@
 A fresh interpreter imports every ``repro_torch`` module and
 ``chip_smoke.py``'s imports, then must hold neither ``jax`` nor ``repro`` /
 ``repro.*`` in ``sys.modules`` (a bare prefix test would be wrong:
-``repro_torch`` starts with ``repro``).  Without a CUDA device, the default
+``repro_torch`` starts with ``repro``), nor ``msgpack`` or ``ml_dtypes``,
+which the reference's checkpoints use and the card's machine lacks.  Without a CUDA device, the default
 device raises and ``chip_smoke.py`` exits non-zero without printing a
 result.
 """
@@ -27,8 +28,9 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+FORBIDDEN = ("jax", "repro", "msgpack", "ml_dtypes")
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "repro") or n.startswith(("jax.", "repro.")))
+             if n in FORBIDDEN or n.startswith(tuple(f + "." for f in FORBIDDEN)))
 print("BAD", bad)
 print("MODULES", sorted(n for n in sys.modules if n.startswith("repro_torch")))
 """
@@ -74,13 +76,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     for mod in ("repro_torch.kernels.batched_walk", "repro_torch.core.carry",
                 "repro_torch.provenance.session", "repro_torch.dataprep.usecases",
                 "repro_torch.provenance.catalog", "repro_torch.provenance.federation",
-                "repro_torch.provenance.impact"):
+                "repro_torch.provenance.impact", "repro_torch.train.checkpoint",
+                "repro_torch.train.loop", "repro_torch.data.pipeline",
+                "repro_torch.launch.train"):
         assert repr(mod) in lines["MODULES"]
 
 
 def test_no_import_statement_names_jax_or_the_reference():
     """Also the imports inside functions, which the subprocess never runs
-    (``chip_smoke.main`` imports the port lazily)."""
+    (``chip_smoke.main`` imports the port lazily); ``msgpack`` and
+    ``ml_dtypes`` neither."""
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -92,7 +97,8 @@ def test_no_import_statement_names_jax_or_the_reference():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "repro"), f"{path.name} imports {name}"
+                assert top not in ("jax", "repro", "msgpack", "ml_dtypes"), \
+                    f"{path.name} imports {name}"
 
 
 def test_default_device_is_cuda_or_raises():
