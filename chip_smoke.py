@@ -143,6 +143,21 @@ PyTorch built for CUDA.  It
    batch lineage (Q2) on the fused walk equals the default session's,
    4 documents' Q1 equals the inverse of those answers, and the consent
    audit flags exactly the non-consenting contributors;
+   then (``mesh``) the mesh layer: at world size 1 on NCCL, Census's
+   32,561 x 32,561 relation split at its first op and composed with
+   ``compose_sharded`` (the local product a ``bitmatmul`` launch) equals
+   ``bitmatmul`` of the whole and ``dataset_lineage``, its audit by the
+   "a0" groups and its frontier equal a plain count on the card and the
+   CPU port's, the collective engine at one shard answers B = 64 Q1/Q2
+   on Compas, Census and SF20 as the merged index does, and OLMo-1B's
+   train_4k-cut step on a (1, 1) ("data", "model") mesh, the state placed
+   by ``state_pspecs``, equals the plain step bit for bit under
+   deterministic algorithms, its state saved and restored with
+   ``shardings=`` bit for bit; then 4 spawned ranks share the card over
+   gloo with CUDA tensors: the engine at 4 shards equals the merged index
+   and the sequential engine, Census's results equal world size 1's, and
+   the qwen3-moe smoke's sharded step (4 MoE groups, on each rank's CPU)
+   the plain one; compose, audit, Q1/Q2, step and restore ms printed;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -623,6 +638,20 @@ def gather_times(copies, max_deg, plain_reps=5):
            "library_ms": None}
     return _bound(row, (q + r + 1 + entries + q * max_deg) * 4, 0.0, 1)
 
+
+
+def tpcdi_join(scale, device, spill=None):
+    """The TPC-DI join at ``scale`` followed by a filter: (index, sink id)."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+    from repro_torch.dataprep.tracked import track
+
+    idx = ProvenanceIndex(f"tpcdi{scale}", device=device, spill=spill)
+    left, right = U.make_tpcdi_join_inputs(scale, device=device)
+    lt, rt = track(left, idx, "trade"), track(right, idx, "security")
+    j = lt.join(rt, on="key", how="inner")
+    f = j.filter_rows(j.table.col("l0") > 0.0).mark_sink()
+    return idx, f.dataset_id
 
 
 # -- federation and impact (phases 7e and 7f) ----------------------------------
@@ -2078,6 +2107,393 @@ def train_phase(dev):
     return out, counts
 
 
+# -- the mesh layer (phase 7m) ---------------------------------------------------
+MESH_RANKS = 4              # ranks sharing the one card over gloo
+MESH_CONFIGS = ("compas", "census", "tpcdi_sf20")
+MESH_SMOKE = "qwen3-moe-235b-a22b"
+MESH_DEADLINE_S = 420       # the spawned ranks' own deadline
+MESH_SMOKE_REL = 1e-5       # the sharded smoke step against the plain one (float32)
+
+
+def mesh_indexes(dev):
+    """Compas, Census and the TPC-DI SF20 join captured on ``dev`` as the
+    main path captures them: each rank of a mesh builds its own copy."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import usecases as U
+
+    out = {}
+    for name in ("compas", "census"):
+        make, run = U.USECASES[name]
+        idx = ProvenanceIndex(name, device=dev)
+        sink = run(idx, make(device=dev)).dataset_id
+        out[name] = (idx, idx.sources()[0], sink)
+    jidx, jsink = tpcdi_join(20, dev)
+    out["tpcdi_sf20"] = (jidx, "trade", jsink)
+    return out
+
+
+def census_relations(idx, src, sink):
+    """Census's src -> sink relation split at its first op: the packed
+    (src -> mid), (mid -> sink) and whole relations, the "a0" group codes
+    and the packed mask of the sink's first half."""
+    from repro_torch.core.compose import compose_chain
+    from repro_torch.kernels import ref
+
+    mid = idx.ops[0].output_id
+    a, b, whole = (compose_chain(idx, x, y) for x, y in ((src, mid), (mid, sink), (src, sink)))
+    group = idx.datasets[src].table.col("a0").to(torch.int32)
+    n_dst = idx.datasets[sink].n_rows
+    mask = torch.zeros(n_dst, dtype=torch.bool, device=a.device)
+    mask[: n_dst // 2] = True
+    return a, b, whole, group, ref.pack_bits(mask[None])[0]
+
+
+def mesh_relation_run(mesh, rels):
+    """``compose_sharded``, ``lineage_audit_sharded`` and
+    ``backward_frontier_sharded`` on Census over ``mesh``: the whole
+    results (the sharded ones gathered) and their host ms (synchronised,
+    median of 7; collective, so every rank times the same calls)."""
+    from repro_torch.core.distributed import (
+        backward_frontier_sharded,
+        compose_sharded,
+        gather_rows,
+        lineage_audit_sharded,
+        shard_relation,
+    )
+
+    a, b, whole, group, mw = rels
+    n = whole.shape[0]
+    sa, sb, sw, sg = (shard_relation(x, mesh) for x in (a, b, whole, group))
+    n_groups = int(group.max()) + 1
+    composed = compose_sharded(sa, sb)
+    counts = lineage_audit_sharded(sw, sg, mw, n_groups)
+    frontier = backward_frontier_sharded(sw, mw)
+    out = {"composed": gather_rows(composed)[:n], "counts": counts,
+           "frontier": gather_rows(frontier)[:n], "local_rows": composed.to_local().shape[0]}
+    times = {"compose_ms": host_ms(lambda: compose_sharded(sa, sb)),
+             "audit_ms": host_ms(lambda: lineage_audit_sharded(sw, sg, mw, n_groups)),
+             "frontier_ms": host_ms(lambda: backward_frontier_sharded(sw, mw))}
+    return out, times
+
+
+def mesh_collective_run(indexes, queries, n_shards, mesh=None):
+    """Q1/Q2 (B = 64) of each configuration through the collective engine's
+    walk (``use_hopcache=False``, ``fused_walk=False``: every hop is the
+    engine's): the answers and their host ms (median of 3)."""
+    from repro_torch.provenance import QuerySession, ShardedProvenanceIndex, prov
+
+    out, times = {}, {}
+    for name in MESH_CONFIGS:
+        idx, src, sink = indexes[name]
+        sv = ShardedProvenanceIndex(idx, n_shards, engine="collective", mesh=mesh)
+        check(sv.engine_name == "collective", f"{name}: engine {sv.engine_name}")
+        ss = QuerySession(sv, use_hopcache=False, fused_walk=False)
+        p1 = prov(sv).source(src).rows_batch(queries[name]["q1"]).forward().to(sink).plan()
+        p2 = prov(sv).source(sink).rows_batch(queries[name]["q2"]).backward().to(src).plan()
+        out[name] = (ss.run(p1), ss.run(p2))
+        times[name] = {"q1_ms": host_ms(lambda: ss.run(p1), reps=3),
+                       "q2_ms": host_ms(lambda: ss.run(p2), reps=3)}
+    return out, times
+
+
+def mesh_sequential(indexes, queries, n_shards):
+    """The same Q1/Q2 through the sequential engine (a comparison)."""
+    from repro_torch.provenance import QuerySession, ShardedProvenanceIndex, prov
+
+    out = {}
+    for name in MESH_CONFIGS:
+        idx, src, sink = indexes[name]
+        sv = ShardedProvenanceIndex(idx, n_shards, engine="numpy")
+        ss = QuerySession(sv, use_hopcache=False, fused_walk=False)
+        out[name] = (
+            ss.run(prov(sv).source(src).rows_batch(queries[name]["q1"]).forward().to(sink).plan()),
+            ss.run(prov(sv).source(sink).rows_batch(queries[name]["q2"]).backward().to(src)
+                   .plan()))
+    return out
+
+
+def same_answers(got, want, what: str) -> None:
+    for g_q, w_q, q in zip(got, want, ("Q1", "Q2")):
+        check(len(g_q) == len(w_q), f"{what} {q}: batch size")
+        for x, y in zip(g_q, w_q):
+            check(torch.equal(x.cpu(), y.cpu()), f"{what} {q}: answers differ")
+
+
+def mesh_smoke_step(dev, world, mesh):
+    """Two float32 steps of the qwen3-moe smoke (batch 8 x 16, ``n_micro``
+    2) on a (world, 1) mesh, the state placed by ``state_pspecs``,
+    ``moe_groups`` = world, against the plain steps under the same policy:
+    loss and grad norm within ``MESH_SMOKE_REL``, the first moment within
+    1e-4 of each leaf's largest.  Returns the errors and the sharded
+    step's ms."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import sharding as SD
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import pshard as PS
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_smoke_config(MESH_SMOKE)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=4, moment_dtype=torch.float32)
+    policy = {"dp": ("data",), "tp": "model", "moe_groups": world}
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (8, 16))
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(np.concatenate([toks[:, 1:], -np.ones((8, 1), np.int64)],
+                                                       axis=1)).to(dev)}
+    step = make_train_step(cfg, opt, n_micro=2, dtype=torch.float32)
+    with PS.use_policy(policy):
+        plain = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), opt, dev)
+        plain_mets = []
+        for _ in range(2):
+            plain, met = step(plain, batch)
+            plain_mets.append(met)
+    with use_mesh(mesh), PS.use_policy(policy):
+        state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), opt, dev)
+        state = SD.place(state, SD.to_shardings(SD.state_pspecs(cfg, state, mesh), mesh))
+        sbatch = SD.place(batch, SD.to_shardings(SD.batch_pspecs(batch, mesh), mesh))
+        mets = []
+        for _ in range(2):
+            sync(dev)
+            t = time.perf_counter()
+            state, met = step(state, sbatch)
+            sync(dev)
+            mets.append((met, (time.perf_counter() - t) * 1e3))
+    errs = {f"{k}_{i}": rel_err(torch.as_tensor(float(m[k])), torch.as_tensor(float(p[k])))
+            for i, ((m, _), p) in enumerate(zip(mets, plain_mets)) for k in ("loss", "grad_norm")}
+    check(max(errs.values()) <= MESH_SMOKE_REL, f"sharded smoke step vs plain: {errs}")
+    full = {n: (v.full_tensor() if isinstance(v, DTensor) else v)
+            for n, v in state.opt.mu.items()}
+    errs["mu"] = close_after_step(full, plain.opt.mu, 1e-4, "sharded smoke mu")
+    sharded = [n for n, p in state.params.named_parameters()
+               if any(pl.is_shard() for pl in p.placements)]
+    check(world == 1 or sharded, "no parameter is sharded")
+    return {"device": str(dev), "errors": errs, "sharded_leaves": len(sharded),
+            "step_ms": [ms for _, ms in mets]}
+
+
+def mesh_rank(rank, world, root, queries, device_type="cuda"):
+    """One of MESH_RANKS spawned ranks sharing the card over gloo (CUDA
+    tensors staged through the host): the collective engine at n_shards =
+    world on Compas, Census and SF20, Census's composition, audit and
+    frontier (of the relations the parent saved) on a ("data",) mesh, and
+    the qwen3-moe smoke's sharded step at (world, 1) on the rank's CPU.
+    Saves its answers, digests, times and launch counts."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_world, make_local_mesh, make_mesh
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_world(rank, world, store=dist.FileStore(str(Path(root) / "store"), world),
+               device_type=dev.type, backend="gloo")
+    try:
+        print(f"mesh rank {rank}: capture", file=sys.stderr, flush=True)
+        indexes = mesh_indexes(dev)
+        # the parent's Census relations (four ranks composing them at once
+        # would each pass through an 8 GB dense transient)
+        rels = tuple(x.to(dev) for x in torch.load(Path(root) / "census.pt"))
+        sync(dev)
+        ops.reset_launch_counts()           # this rank's mesh path starts here
+        print(f"mesh rank {rank}: collective engine", file=sys.stderr, flush=True)
+        answers, q_times = mesh_collective_run(indexes, queries, world)
+        print(f"mesh rank {rank}: Census relations", file=sys.stderr, flush=True)
+        local = make_local_mesh(dev.type)
+        rel_out, rel_times = mesh_relation_run(local, rels)
+        print(f"mesh rank {rank}: smoke step", file=sys.stderr, flush=True)
+        # on this rank's CPU: DTensor's all-gather (FSDP's parameters, the
+        # embedding's backward) does not run on gloo with CUDA tensors in
+        # torch 2.11 (``_c10d_functional.all_gather_into_tensor`` ends in a
+        # segfault), and NCCL refuses two ranks on one card
+        smoke = mesh_smoke_step(torch.device("cpu"), world,
+                                make_mesh((world, 1), ("data", "model"), "cpu"))
+        sync(dev)
+        counts = ops.launch_counts()
+        seq = mesh_sequential(indexes, queries, world)
+        for name in MESH_CONFIGS:
+            same_answers(answers[name], seq[name], f"rank {rank} {name}: collective vs sequential")
+        digest = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                  for k, v in rel_out.items() if isinstance(v, torch.Tensor)}
+        torch.save({"answers": {n: tuple([x.cpu() for x in q] for q in a)
+                                for n, a in answers.items()} if rank == 0 else None,
+                    "digest": digest, "local_rows": rel_out["local_rows"],
+                    "q_times": q_times, "rel_times": rel_times, "smoke": smoke,
+                    "counts": counts}, Path(root) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev, indexes, queries, answers):
+    """The mesh layer.  (a) World size 1 on NCCL (a real process group):
+    Census's relation composed with ``compose_sharded`` equals
+    ``ops.bitmatmul`` of the whole and ``dataset_lineage``'s packed relation,
+    its audit and frontier a plain count on the card and the CPU port's;
+    the collective engine at n_shards 1 equals the merged index's Q1/Q2 on
+    Compas, Census and SF20; OLMo-1B's train_4k-cut step on a (1, 1)
+    ("data", "model") mesh, the state placed by ``state_pspecs``, equals
+    the plain step bit for bit under deterministic algorithms; that state
+    saved and restored with ``shardings=`` onto the mesh, bit for bit.
+    (b) MESH_RANKS spawned ranks on the one card over gloo
+    (``mesh_rank``): the engine's answers equal the merged index's and
+    the sequential engine's, the Census results world size 1's, and the
+    qwen3-moe smoke's sharded step (on each rank's CPU) the plain one.  Returns the results
+    and the path's launch counts (this process's and every rank's)."""
+    import hashlib
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.distributed import backward_frontier_sharded, lineage_audit_sharded
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import sharding as SD
+    from repro_torch.launch.mesh import init_world, make_local_mesh, make_mesh, use_mesh
+    from repro_torch.models import pshard as PS
+    from repro_torch.train import AdamWConfig, CheckpointManager, init_train_state, make_train_step
+    from repro_torch.train.checkpoint import flatten_tree
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = ROOT / "build" / "mesh_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    census = indexes["census"]
+    rels = census_relations(*census)
+    a, b, whole, group, mw = rels
+    n = whole.shape[0]
+    want_whole = ops.bitmatmul(a, b)                     # comparisons: before the path
+    check(torch.equal(want_whole, whole), "Census: bitmatmul of the whole != dataset_lineage")
+    hits = ref.popcount32(whole & mw[None, :]).sum(dim=1) > 0
+    want_counts = torch.bincount(group[hits].long(), minlength=int(group.max()) + 1)
+    cpu_counts = lineage_audit_sharded(whole.cpu(), group.cpu(), mw.cpu(), int(group.max()) + 1)
+    cpu_frontier = backward_frontier_sharded(whole.cpu(), mw.cpu())
+
+    # (a) world size 1, NCCL
+    backend = init_world(0, 1, store=dist.HashStore(), device_type=dev.type)
+    try:
+        sync(dev)
+        ops.reset_launch_counts()       # the mesh path starts here
+        local = make_local_mesh(dev.type)
+        rel_out, rel_times = mesh_relation_run(local, rels)
+        coll, coll_times = mesh_collective_run(indexes, queries, 1)
+        cfg = get_config("olmo-1b")
+        opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+        step = make_train_step(cfg, opt, n_micro=2, q_chunk=0)
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        policy = {"dp": ("data",), "tp": "model"}
+        torch.use_deterministic_algorithms(True)
+        try:
+            gen = torch.Generator(device=dev)
+            plain, plain_met = step(init_train_state(cfg, gen.manual_seed(SEED), opt, dev), batch)
+            sync(dev)
+            t = time.perf_counter()
+            plain, plain_met = step(plain, batch)
+            sync(dev)
+            plain_ms = (time.perf_counter() - t) * 1e3
+            with use_mesh(mesh), PS.use_policy(policy):
+                state = init_train_state(cfg, gen.manual_seed(SEED), opt, dev)
+                sh = SD.to_shardings(SD.state_pspecs(cfg, state, mesh), mesh)
+                state = SD.place(state, sh)
+                sbatch = SD.place(batch, SD.to_shardings(SD.batch_pspecs(batch, mesh), mesh))
+                state, met = step(state, sbatch)
+                sync(dev)
+                t = time.perf_counter()
+                state, met = step(state, sbatch)
+                sync(dev)
+                sharded_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            torch.use_deterministic_algorithms(False)
+        sync(dev)
+        counts = ops.launch_counts()
+        check(float(met["loss"]) == float(plain_met["loss"]),
+              f"sharded OLMo step loss {float(met['loss'])} != {float(plain_met['loss'])}")
+        for (k, x), (_, y) in zip(flatten_tree(state), flatten_tree(plain)):
+            check(torch.equal(x.full_tensor(), y), f"sharded OLMo step: {k} != the plain step's")
+        del plain
+        ck = CheckpointManager(str(root / "ckpt"), keep=1)
+        t = time.perf_counter()
+        ck.save(2, state, blocking=True)
+        save_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        restored = ck.restore(2, like=state, device=dev, shardings=sh)
+        sync(dev)
+        restore_ms = (time.perf_counter() - t) * 1e3
+        for (k, x), (_, y) in zip(flatten_tree(state), flatten_tree(restored)):
+            check(y.placements == x.placements and torch.equal(x.full_tensor(), y.full_tensor()),
+                  f"restored sharded checkpoint: {k} differs")
+        ckpt_bytes = sum(x.numel() * x.element_size() for _, x in flatten_tree(state))
+        del state, restored, sbatch, batch
+        shutil.rmtree(root / "ckpt")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    check(torch.equal(rel_out["composed"], whole), "compose_sharded != dataset_lineage")
+    check(torch.equal(rel_out["counts"].cpu(), want_counts.to(torch.int32).cpu())
+          and torch.equal(rel_out["counts"].cpu(), cpu_counts), "sharded audit != plain count")
+    check(torch.equal(rel_out["frontier"], hits)
+          and torch.equal(rel_out["frontier"].cpu(), cpu_frontier), "sharded frontier")
+    for name in MESH_CONFIGS:
+        same_answers(coll[name], answers[name], f"{name}: collective engine (1 rank) vs merged")
+    world1 = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+              for k, v in rel_out.items() if isinstance(v, torch.Tensor)}
+    out["world_1"] = {
+        "backend": backend, "census_bits": [n, n], "census_bytes": whole.numel() * 4,
+        "census_groups": [int(x) for x in want_counts.tolist()],
+        **rel_times, "collective": coll_times,
+        "olmo_1b_step": {"seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "n_micro": 2,
+                         "plain_ms": plain_ms, "sharded_ms": sharded_ms,
+                         "loss": float(met["loss"]), "bit_equal": True,
+                         "checkpoint": {"bytes": ckpt_bytes, "save_ms": save_ms,
+                                        "restore_ms": restore_ms, "bit_equal": True}}}
+    del rel_out, coll
+
+    # (b) MESH_RANKS ranks on the one card, gloo with CUDA tensors
+    torch.save(tuple(x.cpu() for x in rels), root / "census.pt")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, str(root), {
+        n: queries[n] for n in MESH_CONFIGS}, dev.type), nprocs=MESH_RANKS, join=False,
+        start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.perf_counter() - t < MESH_DEADLINE_S,
+                  f"the {MESH_RANKS} mesh ranks still run after {MESH_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(MESH_RANKS)]
+    spawn_s = time.perf_counter() - t
+    for name in MESH_CONFIGS:
+        same_answers(ranks[0]["answers"][name], answers[name],
+                     f"{name}: collective engine ({MESH_RANKS} ranks) vs merged")
+    for r, res in enumerate(ranks):
+        check(res["digest"] == world1, f"rank {r}: Census results != world size 1's")
+        check(res["local_rows"] == -(-n // MESH_RANKS), f"rank {r}: {res['local_rows']} rows")
+        for k, v in res["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    shutil.rmtree(root)
+    out[f"world_{MESH_RANKS}"] = {
+        "backend": "gloo (CUDA tensors through the host)", "seconds": spawn_s,
+        "collective": ranks[0]["q_times"], **ranks[0]["rel_times"],
+        "smoke_step": {r: res["smoke"] for r, res in enumerate(ranks)},
+        "launch_counts_by_rank": [res["counts"] for res in ranks]}
+    check(counts.get("bitmatmul", 0) > 0, f"the mesh path never launched bitmatmul {counts}")
+    out["tolerances"] = {"smoke_step": MESH_SMOKE_REL, "smoke_mu": 1e-4, "everything_else": 0}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -2313,15 +2729,7 @@ def main() -> int:
         data = sink.table.data[~sink.table.null]
         check(bool(torch.isfinite(data).all()), f"{name}: non-finite sink values")
 
-    def run_join(scale, device, spill=None):
-        idx = ProvenanceIndex(f"tpcdi{scale}", device=device, spill=spill)
-        left, right = U.make_tpcdi_join_inputs(scale, device=device)
-        lt, rt = track(left, idx, "trade"), track(right, idx, "security")
-        j = lt.join(rt, on="key", how="inner")
-        f = j.filter_rows(j.table.col("l0") > 0.0).mark_sink()
-        return idx, f.dataset_id
-
-    (jidx, jsink), dt = sync_time(run_join, 20, dev)
+    (jidx, jsink), dt = sync_time(tpcdi_join, 20, dev)
     capture_s["tpcdi_sf20"] = dt
     check(jidx.datasets[jsink].n_rows > 0, "empty join")
     indexes["tpcdi_sf20"] = (jidx, "trade", jsink)
@@ -2403,8 +2811,8 @@ def main() -> int:
                              q2(idx_c, src_c, sink_c.dataset_id, queries[name]["q2"], walk_c))
         same(answers[name][0], cpu_answers[name][0], f"{name} Q1: card != CPU")
         same(answers[name][1], cpu_answers[name][1], f"{name} Q2: card != CPU")
-    jc, jc_sink = run_join(3, "cpu")
-    jg, jg_sink = run_join(3, dev)
+    jc, jc_sink = tpcdi_join(3, "cpu")
+    jg, jg_sink = tpcdi_join(3, dev)
     qs3 = {"q1": probes(jc.datasets["trade"].n_rows), "q2": probes(jc.datasets[jc_sink].n_rows)}
     sf3 = {"card": {}, "cpu": {}}
     for which, (i, s) in (("card", (jg, jg_sink)), ("cpu", (jc, jc_sink))):
@@ -2726,8 +3134,8 @@ def main() -> int:
               f"{name}: {attr_launch[name]} attribute launches on the card, "
               f"{attr_cpu_launch[name]} on the CPU")
     del idx_c, attr_cpu_sets
-    jc, jc_sink = run_join(3, "cpu")
-    jg, jg_sink = run_join(3, dev)
+    jc, jc_sink = tpcdi_join(3, "cpu")
+    jg, jg_sink = tpcdi_join(3, dev)
     qa3 = {"q1": probes(jc.datasets["trade"].n_rows), "q2": probes(jc.datasets[jc_sink].n_rows),
            "a_src": attr_probe_sets(arng, jc.datasets["trade"].n_cols),
            "a_sink": attr_probe_sets(arng, jc.datasets[jc_sink].n_cols)}
@@ -2870,7 +3278,7 @@ def main() -> int:
         return make
 
     def capture_join20(device, spill):
-        idx, sink = run_join(20, device, spill)
+        idx, sink = tpcdi_join(20, device, spill)
         return idx, "trade", sink
 
     spill_t = {}
@@ -3262,6 +3670,15 @@ def main() -> int:
     train, train_counts = train_phase(dev)
     emit({"phase": "train", "card": card, **train, "launch_counts": train_counts})
 
+    # -- 7m. the mesh layer: world size 1 on NCCL (Census's sharded
+    # composition, audit and frontier; the collective engine on Compas,
+    # Census and SF20; OLMo-1B's step on a (1, 1) mesh bit for bit, its
+    # state restored onto the mesh), then 4 ranks on the card over gloo
+    # (the engine at 4 shards, Census at 4 ranks, the qwen3-moe smoke's
+    # sharded step with 4 MoE groups)
+    mesh_res, mesh_counts = mesh_phase(dev, indexes, queries, answers)
+    emit({"phase": "mesh", "card": card, "B": B, **mesh_res, "launch_counts": mesh_counts})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -3500,7 +3917,7 @@ def main() -> int:
                 "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
                 "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
                 "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0),
-                "train": train_counts.get(k, 0)}
+                "train": train_counts.get(k, 0), "mesh": mesh_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -3519,7 +3936,8 @@ def main() -> int:
                               "sharded": sharded_counts.get("batched_walk", 0),
                               "lm_serving": lm_counts.get("batched_walk", 0),
                               "lm_families": fam_counts.get("batched_walk", 0),
-                              "train": train_counts.get("batched_walk", 0)},
+                              "train": train_counts.get("batched_walk", 0),
+                              "mesh": mesh_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -3535,7 +3953,8 @@ def main() -> int:
                               "sharded": sharded_counts.get("bitmatmul", 0),
                               "lm_serving": lm_counts.get("bitmatmul", 0),
                               "lm_families": fam_counts.get("bitmatmul", 0),
-                              "train": train_counts.get("bitmatmul", 0)},
+                              "train": train_counts.get("bitmatmul", 0),
+                              "mesh": mesh_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -3561,7 +3980,8 @@ def main() -> int:
         n = {"batched_walk": main_counts, "bitmatmul": bitplane_counts}.get(k, unfused_counts)
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")
     for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts),
-                    ("federation", fed_counts), ("serving_tier", serving_counts)):
+                    ("federation", fed_counts), ("serving_tier", serving_counts),
+                    ("mesh", mesh_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
                     ("sharded", sharded_counts), ("lm_serving", lm_counts),

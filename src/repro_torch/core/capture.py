@@ -29,9 +29,15 @@ from repro_torch.core.provtensor import (
     join_tensor,
 )
 
-__all__ = ["build_tensor", "force_coo_capture", "strip_payload", "restore_payload"]
+__all__ = ["build_tensor", "force_coo_capture", "structured_capture_enabled",
+           "strip_payload", "restore_payload"]
 
 _structured_stack = [True]
+
+
+def structured_capture_enabled() -> bool:
+    """Whether :func:`build_tensor` currently emits structured tensors."""
+    return _structured_stack[-1]
 
 
 @contextlib.contextmanager

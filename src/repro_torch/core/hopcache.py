@@ -164,6 +164,7 @@ class ComposedIndex:
         memory_budget_bytes: int = 64 << 20,
         backend: Optional[str] = None,
         spill=None,
+        extend_eager: bool = True,
     ) -> None:
         if backend is None:
             backend = "auto"
@@ -173,6 +174,7 @@ class ComposedIndex:
         self.device = index.device
         self.backend = backend
         self.memory_budget_bytes = int(memory_budget_bytes)
+        self.extend_eager = bool(extend_eager)
         self.costmodel = CostModel(index)
         self._cache: "OrderedDict[Tuple[str, str], _Entry]" = OrderedDict()
         self._bytes = 0
@@ -202,10 +204,12 @@ class ComposedIndex:
         The op DAG is append-only (one producer per dataset), so composed
         relations between existing datasets stay exact and the cache is
         kept.  Ops recorded since the last sync are drained once: every
-        tracked source's reach set absorbs them, and (auto backend) a new op
-        whose on-path slots are all structured and whose on-path prefixes
-        are all cached EXTENDS the warm relations by one closed-form step
-        now; a spilled op tensor on that path is faulted back for it."""
+        tracked source's reach set absorbs them, and (``extend_eager``, auto
+        backend) a new op whose on-path slots are all structured and whose
+        on-path prefixes are all cached EXTENDS the warm relations by one
+        closed-form step now; a spilled op tensor on that path is faulted
+        back for it.  Without ``extend_eager`` the next probe extends
+        lazily."""
         n = len(self.index.ops)
         if n > self._ops_seen:
             for op in self.index.ops[self._ops_seen:n]:
@@ -218,7 +222,7 @@ class ComposedIndex:
             if not slots:
                 continue
             reach.add(op.output_id)
-            if self.backend != "auto":
+            if not (self.extend_eager and self.backend == "auto"):
                 continue
             if not op.tensor.structured:
                 continue

@@ -65,6 +65,7 @@ class ProvenanceIndex:
         self.ops: List[OpRecord] = []
         self.producer: Dict[str, int] = {}          # dataset -> producing op
         self.consumers: Dict[str, List[int]] = {}   # dataset -> consuming ops
+        self.version = 0                            # bumped per appended op
         self._composed = None                       # shared ComposedIndex
         self._session = None                        # shared QuerySession
         self._record_hooks: List = []               # capture observers
@@ -117,6 +118,7 @@ class ProvenanceIndex:
         op = OpRecord(op_id=len(self.ops), info=info, tensor=tensor,
                       input_ids=list(input_ids), output_id=output_id)
         self.ops.append(op)
+        self.version += 1
         self.producer[output_id] = op.op_id
         for d in input_ids:
             self.consumers.setdefault(d, []).append(op.op_id)

@@ -8,8 +8,9 @@
   per-request lineage probes through the async micro-batching
   :class:`~repro_torch.serve.tier.ServingTier` (fuse-key batching +
   admission), reporting fused-batch stats and probe throughput.
-* PROD (--mesh single|multi) is not ported yet: it needs the device mesh
-  and its lowering (ROADMAP A14).
+* PROD (--mesh single|multi) is not ported yet: the device mesh and the
+  sharding layouts are, the dry-run accounting of the full config on them
+  is not (ROADMAP A14b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --tier
@@ -37,8 +38,8 @@ def main(argv=None) -> None:
 
     if args.mesh != "local":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: lowering the full config on a production mesh is "
-            "not ported yet (ROADMAP A14)")
+            f"--mesh {args.mesh}: the dry-run accounting of the full config on the "
+            "production mesh is not ported yet (ROADMAP A14b)")
 
     import numpy as np
     import torch

@@ -4,8 +4,9 @@
   ``--device`` (default: the card) with the provenance-carrying data
   pipeline, the fault-tolerant loop and async checkpoints; rerun with the
   same ``--ckpt-dir`` and it resumes from the latest checkpoint.
-* PROD (--mesh single|multi) is not ported yet: it needs the device mesh,
-  the sharding layouts and their lowering (ROADMAP A14).
+* PROD (--mesh single|multi) is not ported yet: the device mesh and the
+  sharding layouts are (``launch.mesh``, ``launch.sharding``), the dry-run
+  accounting of the full config's step on them is not (ROADMAP A14b).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --device cpu --steps 30
@@ -30,8 +31,8 @@ def main(argv=None) -> None:
 
     if args.mesh != "local":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production mesh, its sharding layouts and the "
-            "lowering of the full config's train step are not ported yet (ROADMAP A14)")
+            f"--mesh {args.mesh}: the dry-run accounting of the full config's train "
+            "step on the production mesh is not ported yet (ROADMAP A14b)")
 
     import torch
 

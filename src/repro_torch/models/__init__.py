@@ -7,4 +7,5 @@ components of :mod:`repro_torch.models.common`, the uniform interface
 parameter tree given as numpy arrays into the port's modules
 (:func:`~repro_torch.models.carry.params_to_numpy` carries it back).  The
 ``forward`` functions are differentiable, for training (:mod:`repro_torch.train`);
-prefill, decode and the encoder run without a gradient."""
+prefill, decode and the encoder run without a gradient.  Activations carry
+the sharding hints of :mod:`repro_torch.models.pshard`."""

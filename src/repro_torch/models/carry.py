@@ -27,7 +27,8 @@ as tensors keyed by the port's parameter names, which is how moments cross.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+import functools
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.whisper import Whisper
 
 __all__ = ["lm_params_from_numpy", "whisper_params_from_numpy", "params_from_numpy",
-           "named_from_numpy", "params_to_numpy"]
+           "named_from_numpy", "params_to_numpy", "reference_path"]
 
 
 def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -150,6 +151,26 @@ def _put(tree: Dict, path, value) -> None:
     tree[path[-1]] = value
 
 
+def reference_path(cfg: ModelConfig, name: str) -> Tuple[List[str], Optional[int]]:
+    """The reference's tree path of a port parameter or module name, and
+    the index on the path's stacked leading axis (``None`` off the stacks):
+    ``layers.{k}`` of block ``j`` is ``blocks/l{k - j * len(block)}`` at
+    ``j``, a tail layer is ``tail{i}``, ``enc_layers.{j}`` is
+    ``enc_layers`` at ``j``."""
+    parts = name.split(".")
+    if parts[0] in ("enc_layers", "dec_layers"):
+        return [parts[0], *parts[2:]], int(parts[1])
+    if parts[0] == "layers":
+        per_block = len(cfg.block)
+        n_stacked = cfg.n_blocks * per_block
+        k = int(parts[1])
+        if k < n_stacked:
+            j, i = divmod(k, per_block)
+            return ["blocks", f"l{i}", *parts[2:]], j
+        return [f"tail{k - n_stacked}", *parts[2:]], None
+    return parts, None
+
+
 def params_to_numpy(cfg: ModelConfig,
                     params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
     """The inverse of :func:`params_from_numpy`: the port's module, or
@@ -159,22 +180,7 @@ def params_to_numpy(cfg: ModelConfig,
     empty dict."""
     named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
     layout = (Whisper if cfg.is_encdec else LM)(cfg, device="meta")
-    per_block = len(cfg.block)
-    n_stacked = cfg.n_blocks * per_block
-
-    def path_of(name: str):
-        """(reference path, stack index or None) of a port parameter or module name."""
-        parts = name.split(".")
-        if parts[0] in ("enc_layers", "dec_layers"):
-            return [parts[0], *parts[2:]], int(parts[1])
-        if parts[0] == "layers":
-            k = int(parts[1])
-            if k < n_stacked:
-                j, i = divmod(k, per_block)
-                return ["blocks", f"l{i}", *parts[2:]], j
-            return [f"tail{k - n_stacked}", *parts[2:]], None
-        return parts, None
-
+    path_of = functools.partial(reference_path, cfg)
     stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
     tree: Dict = {}
     for mod_name, mod in layout.named_modules():

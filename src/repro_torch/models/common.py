@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
 
 __all__ = [
     "rmsnorm",
@@ -62,6 +63,7 @@ __all__ = [
     "cross_kv",
     "cross_attn_decode",
     "mlp_forward",
+    "init_dense",
     "FLOAT32_PARAMS",
     "cast_module",
     "trainable",
@@ -385,6 +387,16 @@ def cast_module(params: nn.Module, out: nn.Module, dtype: torch.dtype, device) -
         state[name] = t.to(device=device, dtype=torch.float32 if keep else dtype)
     out.load_state_dict(state, assign=True)
     return out
+
+
+def init_dense(generator: torch.Generator, shape: Tuple[int, ...], scale: float,
+               device=None) -> torch.Tensor:
+    """A float32 tensor of ``shape`` on ``device`` (``None``: the card,
+    raising without one): standard normal draws from ``generator`` times
+    ``scale``, the reference's ``normal(key, shape) * scale`` (the values
+    are torch's draws, not ``jax.random``'s)."""
+    out = torch.empty(shape, dtype=torch.float32, device=resolve_device(device))
+    return out.normal_(generator=generator).mul_(scale)
 
 
 # ---------------------------------------------------------------------------

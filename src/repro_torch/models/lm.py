@@ -18,6 +18,11 @@ Four entry points, as in the reference:
   prefill(cfg, params, tokens)                 -> logits, caches
   decode_step(cfg, params, token, pos, cache)  -> logits, cache    (cache written in place)
   init_cache(cfg, batch, s_max, device=...)    -> cache
+
+Activations carry the sharding hints of :mod:`.pshard` where the
+reference's do: the embedding and the residual stream over "dp", the
+logits' vocabulary over "tp", and the opt-in sequence-parallel residual
+("sp"); each is the identity without a policy and an active mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
+from repro_torch.models import pshard as PS
 from repro_torch.models import ssd as S
 
 __all__ = [
@@ -156,7 +162,7 @@ def _rot(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _embed(params: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params.embed[tokens].to(dtype)
+    return PS.hint(params.embed[tokens].to(dtype), "dp", None, None)
 
 
 def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +171,7 @@ def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     logits = (x @ w.to(x.dtype)).float()
     if cfg.padded_vocab != cfg.vocab:   # the padding rows never win (and get no gradient)
         logits[..., cfg.vocab:] = C.NEG_INF
-    return logits
+    return PS.hint(logits, "dp", None, "tp")
 
 
 def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int,
@@ -186,11 +192,17 @@ def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk:
 
 def _apply_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, q_chunk: int,
                  rot) -> torch.Tensor:
+    # the sequence-parallel residual stream, opt-in by the policy's "sp"
+    sp = bool((PS.policy() or {}).get("sp"))
+    if sp:
+        x = PS.hint(x, "dp", "sp", None)
     h = C.norm_apply(cfg, x, layer.pre_norm.scale)
     if layer.spec.mixer == "ssd":
         x = x + S.ssd_forward(cfg, layer.ssd, h)
     else:
         x = x + C.attn_forward(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+    if sp and layer.spec.ffn != "none":
+        x = PS.hint(x, "dp", "sp", None)
     return _ffn(cfg, layer, x)
 
 
@@ -210,7 +222,7 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0
     repeated tokens add.  With ``cfg.remat`` each block of ``cfg.block`` is
     rematerialised in the backward pass (:func:`~.common.remat_call`); the
     tail is not, as in the reference."""
-    x = params.embed.to(dtype)[tokens]
+    x = PS.hint(params.embed.to(dtype)[tokens], "dp", None, None)
     rot = _rot(cfg, torch.arange(tokens.shape[1], device=tokens.device)[None, :])
     per = len(cfg.block)
     for j in range(cfg.n_blocks):

@@ -18,12 +18,28 @@ the batched mask walkers as per-shard work joined two ways:
 Because the OR over the shard contributions IS the full relation, both
 joins are byte-identical to the merged walk.
 
-The engine here is the sequential one: a loop over the shards with torch
-ops on the view's device (``repro`` calls it ``"numpy"``; both that name
-and ``"auto"`` select it).  ``repro``'s collective engine
-(``jax.shard_map`` over a device mesh) is not ported: ``engine=
-"collective"`` raises (ROADMAP A10b, with the launch tooling's
-``DeviceMesh``).
+Two engines share that contract:
+
+* ``"collective"`` — one shard per rank of a 1-D ``DeviceMesh``
+  (:func:`~repro_torch.launch.mesh.make_shard_mesh`), joined by
+  ``torch.distributed`` collectives: a forward hop is a per-rank gather
+  and scatter, then ``all_gather``; a backward hop a scatter into the full
+  input space, then an int32 SUM ``all_reduce`` and ``> 0`` (the
+  reference's ``psum(...) > 0``; NCCL has no bitwise-OR reduction);
+* the sequential engine (``repro``'s ``"numpy"``) — a loop over the shards
+  with torch ops on the view's device, and the same join algebra.
+
+``engine="auto"`` picks the collective engine when a process group is up,
+the world holds ``n_shards`` ranks and this rank is one of the first
+``n_shards``; otherwise the sequential one.  ``"collective"`` raises
+without such a world.
+
+Multi-controller: every rank of the mesh runs the same program.  Building
+the view with ``"auto"`` or ``"collective"`` (it builds the mesh) and every
+mask hop of the collective engine are COLLECTIVE: each rank must build the
+same index from the same seed and issue the same queries in the same
+order, so the memoised pair blocks and the session's routes are the same
+on every rank.  A hop some ranks skip hangs the others.
 
 :class:`ShardedProvenanceIndex` is a VIEW over the base index — datasets,
 DAG structure and attribute maps are shared; only the per-op tensors are
@@ -48,6 +64,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.compose import (
     chain_gather,
@@ -96,6 +113,70 @@ def _bool_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The collective engine
+# ---------------------------------------------------------------------------
+class _CollectiveEngine:
+    """Batched mask hops as ``torch.distributed`` collectives over a 1-D
+    mesh, one shard per rank.
+
+    Per (tensor, slot) the valid link pairs of every shard pad to one
+    ``(S, L)`` block (the collectives need equal sizes), memoised on the
+    tensor; a rank reads its own row.  Masks travel as uint8."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.group = mesh.get_group()
+        self.rank = mesh.get_local_rank()
+
+    def _padded(self, st: "ShardedTensor", inp: int):
+        """(out_idx, in_idx) int64 and valid bool ``(S, L)`` blocks on the
+        view's device, the shard widths and the padded width."""
+        cache = st._collective
+        if inp not in cache:
+            pairs = []
+            for shard in st.shards:
+                out, inn = shard._slot_pairs(inp)
+                keep = (out >= 0) & (inn >= 0)
+                pairs.append((out[keep].long(), inn[keep].long()))
+            S = len(pairs)
+            L = max(1, max(len(o) for o, _ in pairs))
+            dev = st.device
+            out_idx = torch.zeros((S, L), dtype=torch.int64, device=dev)
+            in_idx = torch.zeros((S, L), dtype=torch.int64, device=dev)
+            valid = torch.zeros((S, L), dtype=torch.bool, device=dev)
+            for s, (o, i) in enumerate(pairs):
+                out_idx[s, :len(o)] = o
+                in_idx[s, :len(o)] = i
+                valid[s, :len(o)] = True
+            widths = [hi - lo for lo, hi in st.ranges]
+            cache[inp] = (out_idx, in_idx, valid, widths, max(max(widths), 1))
+        return cache[inp]
+
+    def forward(self, st: "ShardedTensor", inp: int, masks: torch.Tensor) -> torch.Tensor:
+        out_idx, in_idx, valid, widths, pw = self._padded(st, inp)
+        o, i, v = out_idx[self.rank], in_idx[self.rank], valid[self.rank]
+        vals = (masks[:, i] & v[None, :]).to(torch.int32)
+        loc = torch.zeros((masks.shape[0], pw), dtype=torch.int32, device=masks.device)
+        loc = (loc.index_add_(1, o, vals) > 0).to(torch.uint8)
+        gathered = [torch.empty_like(loc) for _ in widths]
+        dist.all_gather(gathered, loc, group=self.group)
+        return torch.cat([g[:, :w] for g, w in zip(gathered, widths)], dim=1).to(torch.bool)
+
+    def backward(self, st: "ShardedTensor", inp: int, masks: torch.Tensor) -> torch.Tensor:
+        out_idx, in_idx, valid, _, pw = self._padded(st, inp)
+        lo, hi = st.ranges[self.rank]
+        o, i, v = out_idx[self.rank], in_idx[self.rank], valid[self.rank]
+        local = torch.zeros((masks.shape[0], pw), dtype=torch.bool, device=masks.device)
+        local[:, :hi - lo] = masks[:, lo:hi]
+        vals = (local[:, o] & v[None, :]).to(torch.int32)
+        contrib = torch.zeros((masks.shape[0], st.n_in[inp]), dtype=torch.int32,
+                              device=masks.device)
+        contrib = (contrib.index_add_(1, i, vals) > 0).to(torch.int32)
+        dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=self.group)
+        return contrib > 0
+
+
+# ---------------------------------------------------------------------------
 # Row-range-sharded tensors and the op/index views over them
 # ---------------------------------------------------------------------------
 class ShardedTensor:
@@ -104,11 +185,14 @@ class ShardedTensor:
     Slot statistics and lazy mirrors delegate to the base tensor (they
     describe the SAME relation)."""
 
-    def __init__(self, base: ProvTensor, n_shards: int) -> None:
+    def __init__(self, base: ProvTensor, n_shards: int,
+                 engine: Optional[_CollectiveEngine] = None) -> None:
         self.base = base
         self.n_shards = int(n_shards)
         self.ranges = shard_ranges(base.n_out, n_shards)
         self.shards = [base.slice_rows(lo, hi) for lo, hi in self.ranges]
+        self.engine = engine
+        self._collective: Dict = {}      # the engine's pair blocks, by slot
 
     # -- delegated shape / statistics / mirrors ------------------------------
     @property
@@ -184,10 +268,14 @@ class ShardedTensor:
     # -- the sharded mask hops ----------------------------------------------
     def forward_mask_batch(self, inp: int, in_masks: torch.Tensor) -> torch.Tensor:
         masks = in_masks.to(torch.bool)
+        if self.engine is not None:
+            return self.engine.forward(self, inp, masks)
         return torch.cat([t.forward_mask_batch(inp, masks) for t in self.shards], dim=1)
 
     def backward_mask_batch(self, inp: int, out_masks: torch.Tensor) -> torch.Tensor:
         masks = out_masks.to(torch.bool)
+        if self.engine is not None:
+            return self.engine.backward(self, inp, masks)
         out = torch.zeros((masks.shape[0], self.n_in[inp]), dtype=torch.bool,
                           device=masks.device)
         for (lo, hi), t in zip(self.ranges, self.shards):
@@ -219,7 +307,8 @@ class ShardedTensor:
 
     def __repr__(self) -> str:
         return (f"ShardedTensor(n_out={self.n_out}, n_in={self.n_in}, "
-                f"shards={self.n_shards}, engine=sequential)")
+                f"shards={self.n_shards}, "
+                f"engine={'collective' if self.engine else 'sequential'})")
 
 
 @dataclasses.dataclass
@@ -478,27 +567,46 @@ class ShardedProvenanceIndex:
     """Row-range-sharded view over a :class:`ProvenanceIndex`, on the base
     index's device.
 
-    ``engine`` is ``"auto"`` or ``"numpy"`` (``repro``'s names; both run
-    the sequential per-shard engine); ``"collective"`` raises
-    :class:`NotImplementedError`.  The view tracks base appends: ops
-    recorded on the base after construction are wrapped on next access."""
+    ``engine="auto"`` runs the collective engine when a process group is
+    up with at least ``n_shards`` ranks (this rank among the first
+    ``n_shards``), else the sequential per-shard engine (identical
+    answers); ``"collective"`` requires the former, ``"numpy"`` forces the
+    latter.  ``mesh`` gives the 1-D mesh of ``n_shards`` ranks to use
+    instead of :func:`~repro_torch.launch.mesh.make_shard_mesh`'s.  The
+    view tracks base appends: ops recorded on the base after construction
+    are wrapped on next access."""
 
     def __init__(self, base: ProvenanceIndex, n_shards: int, *,
-                 engine: str = "auto") -> None:
+                 engine: str = "auto", mesh=None) -> None:
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-        if engine == "collective":
-            raise NotImplementedError(
-                "the collective engine (repro's jax.shard_map over a device mesh) "
-                "is not ported: ROADMAP A10b, with the launch tooling's DeviceMesh")
-        if engine not in ("auto", "numpy"):
-            raise ValueError(f"unknown engine {engine!r}")
         self.base = base
         self.n_shards = int(n_shards)
-        self.engine_name = "sequential"
+        self.engine_name, self._engine = self._make_engine(engine, mesh)
         self._wrapped: List[_ShardedOp] = []
         self._composed: Optional[ShardedComposedIndex] = None
         self._session = None
+
+    def _make_engine(self, engine: str, mesh):
+        if engine == "numpy":
+            return "sequential", None
+        if engine not in ("auto", "collective"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if mesh is None:
+            from repro_torch.launch.mesh import make_shard_mesh
+
+            mesh = make_shard_mesh(self.n_shards, device_type=self.base.device.type)
+        elif mesh.ndim != 1 or mesh.size() != self.n_shards:
+            raise ValueError(f"the collective engine needs a 1-D mesh of {self.n_shards} "
+                             f"ranks, got {mesh}")
+        if mesh is None or mesh.get_coordinate() is None:
+            if engine == "collective":
+                raise RuntimeError(
+                    f"the collective engine needs a process group of >= {self.n_shards} "
+                    "ranks with this rank among the first n_shards "
+                    "(launch.mesh.init_world)")
+            return "sequential", None
+        return "collective", _CollectiveEngine(mesh)
 
     # -- view plumbing -------------------------------------------------------
     @property
@@ -522,12 +630,16 @@ class ShardedProvenanceIndex:
         return self.base.consumers
 
     @property
+    def version(self) -> int:
+        return self.base.version
+
+    @property
     def ops(self) -> List[_ShardedOp]:
         for op in self.base.ops[len(self._wrapped):]:
             self._wrapped.append(_ShardedOp(
                 op_id=op.op_id,
                 info=op.info,
-                tensor=ShardedTensor(op.tensor, self.n_shards),
+                tensor=ShardedTensor(op.tensor, self.n_shards, self._engine),
                 input_ids=list(op.input_ids),
                 output_id=op.output_id,
             ))

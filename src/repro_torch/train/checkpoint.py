@@ -15,10 +15,11 @@ The port of ``repro.train.checkpoint``.  Layout per step::
   most one outstanding;
 * INTEGRITY: a CRC32 per array, checked on load;
 * RETENTION: the ``keep`` most recent checkpoints, older ones pruned;
-* RESTORE ANYWHERE: arrays are saved whole with their logical shapes;
-  ``restore`` places them on any device and casts each to the dtype of the
-  tree it restores into (the one-device form of the reference's elastic
-  restore onto another mesh).
+* RESTORE ANYWHERE: arrays are saved whole with their logical shapes (a
+  DTensor leaf is gathered first, so saving one is collective: every rank
+  saves, each into its own directory); ``restore`` places them on any
+  device, or with ``shardings=`` distributes them onto any mesh (elastic),
+  and casts each to the dtype of the tree it restores into.
 
 Two deviations from the reference's files, neither in the protocol: the
 metadata is JSON, not msgpack, and a bfloat16 tensor is stored as its
@@ -36,16 +37,17 @@ import os
 import shutil
 import threading
 import zlib
-from typing import Any, List, Mapping, Optional, Tuple
+from typing import Any, Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.common import rebind
 
-__all__ = ["CheckpointManager", "flatten_tree", "tree_device"]
+__all__ = ["CheckpointManager", "flatten_tree", "unflatten_tree", "tree_device"]
 
 Tree = Any
 
@@ -54,11 +56,13 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def flatten_tree(tree: Tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """``[(path, tensor)]`` in the tree's order."""
+def flatten_tree(tree: Tree, prefix: str = "",
+                 is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Tuple[str, Any]]:
+    """``[(path, tensor)]`` in the tree's order; ``is_leaf`` names other
+    leaves (a tree of shardings)."""
     if tree is None:
         return []
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, torch.Tensor) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix.rstrip("/"), tree)]
     if isinstance(tree, nn.Module):
         return [(f"{prefix}{n}", p) for n, p in tree.named_parameters()]
@@ -68,10 +72,11 @@ def flatten_tree(tree: Tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]
         items = tree.items()
     else:
         raise TypeError(f"{prefix or 'tree'}: cannot checkpoint a {type(tree).__name__}")
-    return [kv for k, v in items for kv in flatten_tree(v, f"{prefix}{k}/")]
+    return [kv for k, v in items for kv in flatten_tree(v, f"{prefix}{k}/", is_leaf)]
 
 
-def _unflatten(like: Tree, leaves: Mapping[str, torch.Tensor], prefix: str = "") -> Tree:
+def unflatten_tree(like: Tree, leaves: Mapping[str, torch.Tensor], prefix: str = "") -> Tree:
+    """A tree shaped as ``like`` holding ``leaves`` (keyed by path)."""
     if like is None:
         return None
     if isinstance(like, torch.Tensor):
@@ -79,9 +84,9 @@ def _unflatten(like: Tree, leaves: Mapping[str, torch.Tensor], prefix: str = "")
     if isinstance(like, nn.Module):
         return rebind(like, {n: leaves[f"{prefix}{n}"] for n, _ in like.named_parameters()})
     if _is_namedtuple(like):
-        return type(like)(*(_unflatten(v, leaves, f"{prefix}{k}/")
+        return type(like)(*(unflatten_tree(v, leaves, f"{prefix}{k}/")
                             for k, v in zip(like._fields, like)))
-    return {k: _unflatten(v, leaves, f"{prefix}{k}/") for k, v in like.items()}
+    return {k: unflatten_tree(v, leaves, f"{prefix}{k}/") for k, v in like.items()}
 
 
 def tree_device(tree: Tree) -> torch.device:
@@ -90,8 +95,11 @@ def tree_device(tree: Tree) -> torch.device:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t``; bfloat16 as its uint16 bit pattern."""
+    """A host copy of ``t``, whole (a DTensor is gathered: collective);
+    bfloat16 as its uint16 bit pattern."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
@@ -170,11 +178,16 @@ class CheckpointManager:
                 out.append(int(name[5:]))
         return sorted(out)
 
-    def restore(self, step: int, like: Tree, device=None) -> Tree:
+    def restore(self, step: int, like: Tree, device=None, shardings: Tree = None) -> Tree:
         """The checkpoint of ``step`` in the structure of ``like``, every
         leaf on ``device`` (``None``: the card, raising without one) in the
-        dtype of ``like``'s leaf at its path."""
+        dtype of ``like``'s leaf at its path.  With ``shardings`` (a tree
+        shaped as ``like`` of :class:`~repro_torch.launch.sharding.Sharding`
+        leaves) each rank keeps its own shards of each leaf on its mesh: any
+        mesh, not only the one that saved (elastic)."""
         dev = resolve_device(device)
+        placed = {} if shardings is None else dict(
+            flatten_tree(shardings, is_leaf=lambda x: hasattr(x, "placements")))
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -190,8 +203,14 @@ class CheckpointManager:
                     t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr)
-                leaves[key] = t.to(device=dev, dtype=leaf.dtype)
-        return _unflatten(like, leaves)
+                t = t.to(device=dev, dtype=leaf.dtype)
+                if shardings is not None:
+                    if key not in placed:
+                        raise KeyError(f"no sharding for leaf {key!r}")
+                    t = distribute_tensor(t, placed[key].mesh, placed[key].placements,
+                                          src_data_rank=None)
+                leaves[key] = t
+        return unflatten_tree(like, leaves)
 
     # -- housekeeping ---------------------------------------------------------
     def _prune(self) -> None:

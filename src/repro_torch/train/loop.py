@@ -1,6 +1,7 @@
 """Fault-tolerant training loop: checkpoint/restart, stragglers, crash hook.
 
-The port of ``repro.train.loop``, one process on one device:
+The port of ``repro.train.loop``, one process on one device, or each
+rank of a mesh running the same loop over a state of DTensors:
 
 * RESUME: on start, restore the latest complete checkpoint (atomic
   directories, so a crash mid-save never corrupts the resume point) onto
@@ -48,18 +49,21 @@ def run_training(
     batch_fn: Callable[[int], Dict[str, Any]],
     ckpt: CheckpointManager,
     cfg: LoopConfig,
+    state_shardings: Optional[Any] = None,
     log: Callable[[str], None] = print,
 ) -> Dict[str, Any]:
     """Run steps ``[resume point, cfg.total_steps)``.  ``batch_fn(step)``
     MUST be a pure function of the step (the data pipeline is deterministic
-    and resumable), so a restart re-seeks exactly."""
+    and resumable), so a restart re-seeks exactly.  ``state_shardings``
+    (:func:`~repro_torch.launch.sharding.to_shardings` of the state's
+    specs) places a restored state on its mesh."""
     dev = tree_device(state)
     start_step = 0
     ckpt.wait()  # an in-flight async save (e.g. of a crashed earlier run on
     # this manager) must commit before the resume point is resolved
     latest = ckpt.latest_step()
     if latest is not None:
-        state = ckpt.restore(latest, like=state, device=dev)
+        state = ckpt.restore(latest, like=state, device=dev, shardings=state_shardings)
         start_step = latest
         log(f"[resume] restored step {latest}")
 

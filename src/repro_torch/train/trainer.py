@@ -12,7 +12,10 @@ run:
   ``accum_dtype``), then divided by ``n_micro``; peak activation memory is
   one microbatch's;
 * rematerialisation as the model config says (``cfg.remat``, per block);
-* AdamW from :mod:`repro_torch.train.optimizer`.
+* AdamW from :mod:`repro_torch.train.optimizer`;
+* DTensor parameters and batches (placed by
+  :mod:`repro_torch.launch.sharding`): the same step, every op on
+  DTensors, the loss reduced over the sharded rows.
 
 The step is functional as the reference's is: it returns a new
 :class:`TrainState` (new parameter tensors and moments) and leaves the one
@@ -20,10 +23,13 @@ it was given as it was, apart from clearing its parameters' ``.grad``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import rebind, trainable
@@ -49,6 +55,16 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator, opt_cfg: Adam
     return TrainState(params=params, opt=init_opt_state(params, opt_cfg))
 
 
+def _mesh_scope(named: Dict[str, torch.Tensor]):
+    """DTensor's ``implicit_replication`` for a step over DTensor
+    parameters: the tensors the model builds from shapes alone (RoPE
+    angles, masks, positions) are the same on every rank and are taken as
+    replicated.  An op without a DTensor rule still raises."""
+    if any(isinstance(p, DTensor) for p in named.values()):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean NLL of float32 logits (B, S, V): labels == -1 are
     ignored.  Returns (loss, number of unmasked labels, at least 1)."""
@@ -58,7 +74,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Ten
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
-    return nll.sum() / denom, denom
+    loss = nll.sum() / denom
+    if isinstance(loss, DTensor):     # a sum over sharded rows: reduce it
+        loss, denom = loss.full_tensor(), denom.full_tensor()
+    return loss, denom
 
 
 def make_loss_fn(cfg: ModelConfig, q_chunk: int = 0,
@@ -95,6 +114,10 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Batch):
         named = dict(state.params.named_parameters())
+        with _mesh_scope(named):
+            return _step(state, batch, named)
+
+    def _step(state: TrainState, batch: Batch, named: Dict[str, torch.Tensor]):
         odd = {p.dtype for p in named.values()} - {opt_cfg.accum_dtype}
         if odd:
             raise ValueError(f"gradients accumulate in the parameters' dtype: "
@@ -119,7 +142,10 @@ def make_train_step(
             loss = loss.detach()
         grads = {}
         for n, p in named.items():    # the state's params keep no gradient
-            grads[n] = p.grad.div_(n_micro) if n_micro > 1 else p.grad
+            g = p.grad.div_(n_micro) if n_micro > 1 else p.grad
+            if isinstance(g, DTensor) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)   # reduce partial sums
+            grads[n] = g
             p.grad = None
         new_params, new_opt, metrics = adamw_update(named, grads, state.opt, opt_cfg)
         del grads

@@ -78,7 +78,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.provenance.catalog", "repro_torch.provenance.federation",
                 "repro_torch.provenance.impact", "repro_torch.train.checkpoint",
                 "repro_torch.train.loop", "repro_torch.data.pipeline",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.launch.shapes",
+                "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                "repro_torch.models.pshard", "repro_torch.core.distributed"):
         assert repr(mod) in lines["MODULES"]
 
 
@@ -86,7 +88,8 @@ def test_no_import_statement_names_jax_or_the_reference():
     """Also the imports inside functions, which the subprocess never runs
     (``chip_smoke.main`` imports the port lazily); ``msgpack`` and
     ``ml_dtypes`` neither."""
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+             *sorted((ROOT / "examples" / "torch").glob("*.py"))]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
