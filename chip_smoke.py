@@ -158,6 +158,16 @@ PyTorch built for CUDA.  It
    and the sequential engine, Census's results equal world size 1's, and
    the qwen3-moe smoke's sharded step (4 MoE groups, on each rank's CPU)
    the plain one; compose, audit, Q1/Q2, step and restore ms printed;
+   then (``dryrun``) the dry-run accounting: OLMo-1B's train_4k cell cut
+   to global batch 8 on a (1, 1) mesh over a fake process group, whose
+   argument bytes equal the card's state and batch exactly, whose dot
+   FLOPs equal ``train_step_flops`` with remat off and on, and whose predicted peak is within 20% of the card's over real
+   steps, its bound beside the measured ms a step; ``run_cell`` on
+   OLMo-1B's four shapes on 256 fake ranks and llama3-405b's train_4k on
+   512 (status, memory, FLOPs, collective bytes, bound), and ``perf``'s
+   ``lowmem`` below ``base`` in temp; then (``examples``) the seven
+   examples of ``examples/torch`` on the card through their ``main``, each
+   printing its landmarks, ``batched_walk`` and ``bitmatmul`` launched;
 8. calibrates the cost model on the card (quick grid, into a file under
    ``build/``) and prints the fitted constants, which are not installed;
 9. times every kernel at the main path's shapes beside its plain version,
@@ -1856,18 +1866,18 @@ def train_smoke_batch(cfg, seed, device):
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
-def train_step_flops(cfg, opt, n_micro, batch, seq) -> int:
+def train_step_flops(cfg, opt, n_micro, batch, seq, remat=False) -> int:
     """The model FLOPs of one train step (forward and backward matmuls,
     attention's S x S products included), counted by ``FlopCounterMode``
-    over a step on the meta device with remat off, so no recompute is
-    counted and nothing is allocated."""
+    over a step on the meta device, so nothing is allocated; with remat off
+    (the default) no recompute is counted."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.models.lm import LM
     from repro_torch.models.common import trainable
     from repro_torch.train import TrainState, init_opt_state, make_train_step
 
-    cfg = dataclasses.replace(cfg, remat=False)
+    cfg = dataclasses.replace(cfg, remat=remat)
     params = trainable(LM(cfg, device="meta"))
     state = TrainState(params, init_opt_state(params, opt))
     toks = torch.zeros((batch, seq), dtype=torch.int32, device="meta")
@@ -1875,6 +1885,22 @@ def train_step_flops(cfg, opt, n_micro, batch, seq) -> int:
     with counter:
         make_train_step(cfg, opt, n_micro=n_micro)(state, {"tokens": toks, "labels": toks})
     return counter.get_total_flops()
+
+
+def remat_recompute_flops(cfg, batch, seq) -> int:
+    """The dot FLOPs that remat ``"nothing"`` adds to one train step of a
+    dense decoder (attention and MLP layers, ``q_chunk`` 0), from the
+    config alone: the backward runs each block's forward again, all but
+    the block's last product (its MLP's down projection), whose output the
+    backward never reads, so checkpointing stops before it."""
+    specs = cfg.layer_specs()
+    check(all(s.mixer in ("attn", "attn_local") and s.ffn == "mlp" for s in specs)
+          and not cfg.tail and not cfg.window, f"{cfg.name}: not a dense decoder")
+    t, d, hd, f = batch * seq, cfg.d_model, cfg.hd, cfg.d_ff
+    attn = 2 * t * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 2 * 2 * batch * cfg.n_heads * seq * seq * hd
+    mlp = 2 * t * d * f * (3 if cfg.gated_mlp else 2)
+    return cfg.n_blocks * (len(cfg.block) * (attn + mlp) - 2 * t * f * d)
 
 
 def train_phase(dev):
@@ -2393,12 +2419,23 @@ def mesh_phase(dev, indexes, queries, answers):
         torch.use_deterministic_algorithms(True)
         try:
             gen = torch.Generator(device=dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             plain, plain_met = step(init_train_state(cfg, gen.manual_seed(SEED), opt, dev), batch)
             sync(dev)
             t = time.perf_counter()
             plain, plain_met = step(plain, batch)
             sync(dev)
             plain_ms = (time.perf_counter() - t) * 1e3
+            plain_peak = torch.cuda.max_memory_allocated(dev) - held
+            # the plain state stays beside the sharded one: its steps' cached
+            # blocks go back to the card first (the sharded step allocates no
+            # more than the plain one, tools/olmo_mesh_step.py; the blocks the
+            # earlier phases left cached did not fit its sizes)
+            torch.cuda.empty_cache()
+            # the sharded step's peak above what is held beside it (the plain state)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             with use_mesh(mesh), PS.use_policy(policy):
                 state = init_train_state(cfg, gen.manual_seed(SEED), opt, dev)
                 sh = SD.to_shardings(SD.state_pspecs(cfg, state, mesh), mesh)
@@ -2410,6 +2447,7 @@ def mesh_phase(dev, indexes, queries, answers):
                 state, met = step(state, sbatch)
                 sync(dev)
                 sharded_ms = (time.perf_counter() - t) * 1e3
+                sharded_peak = torch.cuda.max_memory_allocated(dev) - held
         finally:
             torch.use_deterministic_algorithms(False)
         sync(dev)
@@ -2451,6 +2489,7 @@ def mesh_phase(dev, indexes, queries, answers):
         **rel_times, "collective": coll_times,
         "olmo_1b_step": {"seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "n_micro": 2,
                          "plain_ms": plain_ms, "sharded_ms": sharded_ms,
+                         "plain_peak_bytes": plain_peak, "sharded_peak_bytes": sharded_peak,
                          "loss": float(met["loss"]), "bit_equal": True,
                          "checkpoint": {"bytes": ckpt_bytes, "save_ms": save_ms,
                                         "restore_ms": restore_ms, "bit_equal": True}}}
@@ -2492,6 +2531,229 @@ def mesh_phase(dev, indexes, queries, answers):
     out["tolerances"] = {"smoke_step": MESH_SMOKE_REL, "smoke_mu": 1e-4, "everything_else": 0}
     out["seconds"] = time.perf_counter() - t_phase
     return out, counts
+
+
+# -- the dry-run accounting (phase 7n) ------------------------------------------
+DRYRUN_CELLS = [("olmo-1b", shape, "single") for shape in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + \
+    [("llama3-405b", "train_4k", "multi")]
+DRYRUN_PEAK_REL = 0.20      # predicted peak (arguments + temp) against the card's
+
+
+def cell_bound_ms(stats) -> dict:
+    """The card's least time for an accounted step: dot FLOPs over the bf16
+    peak or traffic over the memory rate, the larger."""
+    ops_ms = stats["dot_flops"] / BF16_PEAK_FLOPS * 1e3
+    bytes_ms = stats["traffic_bytes"] / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def dryrun_phase(dev):
+    """The dry-run accounting (``launch/{hloanal,dryrun,perf}.py``).  (a)
+    OLMo-1B at train_4k's settings cut to global batch 8 (seq 4,096,
+    ``n_micro`` 2) on a (1, 1) mesh over a fake process group of one rank:
+    its argument bytes equal the bytes of the real ``TrainState`` and batch
+    on the card, exactly; its dot FLOPs equal ``train_step_flops``'s count,
+    exactly, with remat off and with remat on, where they also equal the
+    remat-off count plus each block's forward less its last product
+    (:func:`remat_recompute_flops`, from the config: checkpointing stops its
+    recompute after the last tensor the backward needs; 1.2477x at
+    OLMo-1B's widths); the
+    predicted peak (arguments + temp) is within DRYRUN_PEAK_REL
+    of ``max_memory_allocated`` over two real steps; the bound beside the
+    measured ms a step.  (b) ``run_cell`` on OLMo-1B's four shapes on the
+    single mesh (256 fake ranks) and llama3-405b's train_4k on the multi
+    mesh (512): status ``ok`` or the skip ``cell_skip_reason`` gives,
+    per-device memory, FLOPs, collective bytes and bound.  (c) ``perf``'s
+    ``lowmem`` on OLMo-1B train_4k single: its temp below ``base``'s (the
+    ``base`` record is (b)'s cell).  Returns the results and the path's
+    launch counts (none: nothing here launches a kernel)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import perf as PF
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.checkpoint import flatten_tree
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {}
+
+    # (a) the cell the train phase runs, accounted on a (1, 1) mesh
+    cfg = get_config("olmo-1b")
+    opt = AdamWConfig()
+    cut = dict(n_micro_override=2, global_batch=TRAIN_BATCH)
+    check(SH.SHAPES["train_4k"].seq_len == TRAIN_SEQ and SH.q_chunk("olmo-1b", "train_4k") == 0,
+          "train_4k is not the train phase's cell")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        on = DR.lower_cell("olmo-1b", "train_4k", mesh, **cut)
+        off = DR.lower_cell("olmo-1b", "train_4k", mesh, cfg_overrides={"remat": False}, **cut)
+    finally:
+        dist.destroy_process_group()
+    flops = train_step_flops(cfg, opt, 2, TRAIN_BATCH, TRAIN_SEQ)
+    check(off.stats.dot_flops == flops,
+          f"dot FLOPs with remat off {off.stats.dot_flops} != train_step_flops {flops}")
+    remat_flops = train_step_flops(cfg, opt, 2, TRAIN_BATCH, TRAIN_SEQ, remat=True)
+    check(on.stats.dot_flops == remat_flops,
+          f"dot FLOPs with remat {on.stats.dot_flops} != FlopCounterMode's {remat_flops}")
+    # the recompute itself, from the config: no count of the step can pass
+    # for it if checkpointing recomputed nothing
+    recompute = remat_recompute_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    check(on.stats.dot_flops == flops + recompute,
+          f"dot FLOPs with remat {on.stats.dot_flops} != {flops} + the blocks' recompute "
+          f"{recompute}")
+    remat_ratio = on.stats.dot_flops / off.stats.dot_flops
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), opt, dev)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    batch = {"tokens": toks, "labels": toks}
+    real_args = sum(t.numel() * t.element_size() for _, t in flatten_tree(state)) + \
+        sum(t.numel() * t.element_size() for t in batch.values())
+    ma = on.memory_analysis()
+    check(ma.argument_size_in_bytes == real_args,
+          f"argument bytes {ma.argument_size_in_bytes} != the card's state and batch {real_args}")
+    step = make_train_step(cfg, opt, n_micro=2, q_chunk=0)
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t)
+    check(bool(torch.isfinite(met["loss"])), f"loss {met['loss']}")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del state, met
+    torch.cuda.empty_cache()
+    predicted = ma.argument_size_in_bytes + ma.temp_size_in_bytes
+    check(abs(predicted / peak - 1) <= DRYRUN_PEAK_REL,
+          f"predicted peak {predicted} vs the card's {peak}")
+    step_ms = statistics.median(seconds[1:]) * 1e3
+    out["train_cut"] = {
+        "cell": "olmo-1b train_4k", "reduced": {"global_batch": [256, TRAIN_BATCH]},
+        "n_micro": on.n_micro, "remat": cfg.remat_policy, "accounting_s": [on.seconds, off.seconds],
+        "memory": dataclasses.asdict(ma), "dot_flops_remat": on.stats.dot_flops,
+        "dot_flops_no_remat": off.stats.dot_flops, "train_step_flops": flops,
+        "remat_ratio": remat_ratio, "remat_recompute_flops": recompute,
+        "traffic_bytes": on.stats.traffic_bytes,
+        "real_argument_bytes": real_args, "predicted_peak_bytes": predicted,
+        "max_memory_allocated_bytes": peak, "peak_ratio": predicted / peak,
+        "ms_per_step": step_ms, "step_ms_all": [x * 1e3 for x in seconds],
+        **cell_bound_ms(on.stats.as_dict())}
+
+    # (b) production cells on 256 and 512 fake ranks
+    cells = {}
+    for mesh_name in ("single", "multi"):
+        with DR.fake_production_mesh(mesh_name, "cuda") as mesh:
+            for arch, shape, m in DRYRUN_CELLS:
+                if m != mesh_name:
+                    continue
+                t = time.perf_counter()
+                rec = DR.run_cell(arch, shape, mesh, mesh_name)
+                rec["seconds"] = time.perf_counter() - t
+                want = SH.cell_skip_reason(arch, shape)
+                check(rec["status"] == ("skip" if want else "ok") and rec.get("reason") == want,
+                      f"{arch} {shape} {mesh_name}: {rec['status']} {rec.get('error', '')}")
+                if rec["status"] == "ok":
+                    rec.update(cell_bound_ms(rec["hlo"]))
+                    rec["fits_80gb"] = (rec["memory"]["argument_size_in_bytes"]
+                                        + rec["memory"]["temp_size_in_bytes"]) < 80e9
+                cells[f"{arch}/{shape}/{mesh_name}"] = rec
+            if mesh_name == "single":
+                # (c) perf's lowmem against base (the single-mesh train cell)
+                t = time.perf_counter()
+                lowmem = PF.run_variant("olmo-1b", "train_4k", mesh, "lowmem")
+                lowmem["seconds"] = time.perf_counter() - t
+    base_rec = cells["olmo-1b/train_4k/single"]
+    check(lowmem["memory"]["temp_size_in_bytes"] < base_rec["memory"]["temp_size_in_bytes"],
+          f"lowmem temp {lowmem['memory']} >= base {base_rec['memory']}")
+    out["cells"] = cells
+    out["perf"] = {"base": {"memory": base_rec["memory"], "hlo": base_rec["hlo"]},
+                   "lowmem": lowmem}
+    out["tolerances"] = {"argument_bytes": 0, "flops_no_remat": 0, "flops_remat": 0,
+                         "peak_rel": DRYRUN_PEAK_REL}
+    out["seconds"] = time.perf_counter() - t_phase
+    counts = ops.launch_counts()
+    return out, counts
+
+
+# -- the examples (phase 7o) -----------------------------------------------------
+EXAMPLES = {
+    "quickstart": ([], ["Q2  output record 0 derives from", "run_many fused", "session stats"]),
+    "fairness_audit": ([], ["all three methods agree",
+                            "impact closure matches the composed relation"]),
+    "erasure_audit": ([], ["RecomputePlan", "rebuild order:", "stale cached relations dropped:",
+                           "what-if: zero ingest row 0's income",
+                           "without rerunning the pipeline"]),
+    "streaming_lineage": ([], ["after 40 appended ops: extends=", "spilled to disk",
+                               "faulted back: rehydrations=",
+                               "bounded: composed-relation residency stayed under"]),
+    "federated_lineage": ([], ["capability: prep index is read-only from the serving tier",
+                               "traces to raw user row", "batch trace-to-source:",
+                               "federation stats:"]),
+    "serve_with_lineage": ([], ["response row 2 derives from request row",
+                                "session stats (shared composed relations)",
+                                "federation stats (single-entry catalog)"]),
+    "train_with_provenance": (["--tiny", "--steps", "4"],
+                              ["corpus: 1024 docs ->", "worst-loss batch = step",
+                               "consent audit:", "final provenance index:"]),
+}
+
+
+def examples_phase(dev):
+    """The seven examples of ``examples/torch`` on the card, each through its
+    ``main(argv)`` in this process (no ``--device``: the card), its output
+    captured: each prints its landmarks; ``train_with_provenance`` at
+    ``--tiny`` for 4 steps, its checkpoints under ``build/examples_smoke/``
+    (removed after).  Returns each example's seconds and launch counts and
+    the path's launch counts."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ckpt = ROOT / "build" / "examples_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ops.reset_launch_counts()
+    runs = {}
+    for name, (argv, landmarks) in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        if name == "train_with_provenance":
+            argv = [*argv, "--ckpt-dir", str(ckpt)]
+        before = ops.launch_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+        torch.cuda.synchronize(dev)
+        text = buf.getvalue()
+        missing = [m for m in landmarks if m not in text]
+        check(not missing, f"examples/torch/{name}.py: no {missing} in\n{text[-2000:]}")
+        after = ops.launch_counts()
+        runs[name] = {"seconds": time.perf_counter() - t, "lines": text.count("\n"),
+                      "launch_counts": {k: after.get(k, 0) - before.get(k, 0) for k in after}}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counts = ops.launch_counts()
+    for k in ("batched_walk", "bitmatmul"):
+        check(counts.get(k, 0) > 0, f"the examples never launched {k}: {counts}")
+    return {"examples": runs, "seconds": time.perf_counter() - t_phase}, counts
 
 
 def main() -> int:
@@ -3679,6 +3941,16 @@ def main() -> int:
     mesh_res, mesh_counts = mesh_phase(dev, indexes, queries, answers)
     emit({"phase": "mesh", "card": card, "B": B, **mesh_res, "launch_counts": mesh_counts})
 
+    # -- 7n. the dry-run accounting: OLMo-1B's train_4k-cut cell on a (1, 1)
+    # mesh against the card's state bytes, FLOPs and peak; OLMo-1B's four
+    # cells on 256 fake ranks, llama3-405b's train_4k on 512; perf's lowmem
+    dryrun_res, dryrun_counts = dryrun_phase(dev)
+    emit({"phase": "dryrun", "card": card, **dryrun_res, "launch_counts": dryrun_counts})
+
+    # -- 7o. the seven examples of examples/torch on the card, landmarks checked
+    examples_res, examples_counts = examples_phase(dev)
+    emit({"phase": "examples", "card": card, **examples_res, "launch_counts": examples_counts})
+
     # -- 8. calibration on the card (not installed) -----------------------------
     # twice, on grids drawn from two seeds: the two fits show how far the
     # fitted constants move between runs
@@ -3917,7 +4189,8 @@ def main() -> int:
                 "federation": fed_counts.get(k, 0), "chapman": chapman_counts.get(k, 0),
                 "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
                 "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0),
-                "train": train_counts.get(k, 0), "mesh": mesh_counts.get(k, 0)}
+                "train": train_counts.get(k, 0), "mesh": mesh_counts.get(k, 0),
+                "dryrun": dryrun_counts.get(k, 0), "examples": examples_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -3937,7 +4210,9 @@ def main() -> int:
                               "lm_serving": lm_counts.get("batched_walk", 0),
                               "lm_families": fam_counts.get("batched_walk", 0),
                               "train": train_counts.get("batched_walk", 0),
-                              "mesh": mesh_counts.get("batched_walk", 0)},
+                              "mesh": mesh_counts.get("batched_walk", 0),
+                              "dryrun": dryrun_counts.get("batched_walk", 0),
+                              "examples": examples_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
          "library_ms": walk_library_ms},
@@ -3954,7 +4229,9 @@ def main() -> int:
                               "lm_serving": lm_counts.get("bitmatmul", 0),
                               "lm_families": fam_counts.get("bitmatmul", 0),
                               "train": train_counts.get("bitmatmul", 0),
-                              "mesh": mesh_counts.get("bitmatmul", 0)},
+                              "mesh": mesh_counts.get("bitmatmul", 0),
+                              "dryrun": dryrun_counts.get("bitmatmul", 0),
+                              "examples": examples_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
         {"name": "bitset_rank", "route": "cuda", "source": "src/repro_torch/csrc/bitset_rank.cu",
@@ -3981,12 +4258,14 @@ def main() -> int:
         check(n.get(k, 0) > 0, f"{k} was not launched on its path")
     for path, n in (("attribute", attr_counts), ("spill_hopcache", spill_hc_counts),
                     ("federation", fed_counts), ("serving_tier", serving_counts),
-                    ("mesh", mesh_counts)):
+                    ("mesh", mesh_counts), ("examples", examples_counts)):
         check(n.get("bitmatmul", 0) > 0, f"bitmatmul was not launched on the {path} path")
     for path, n in (("federation", fed_counts), ("serving_tier", serving_counts),
                     ("sharded", sharded_counts), ("lm_serving", lm_counts),
-                    ("lm_families", fam_counts), ("train", train_counts)):
+                    ("lm_families", fam_counts), ("train", train_counts),
+                    ("examples", examples_counts)):
         check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
+    check(not any(dryrun_counts.values()), f"the dry run launched a kernel: {dryrun_counts}")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

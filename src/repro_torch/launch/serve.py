@@ -8,16 +8,20 @@
   per-request lineage probes through the async micro-batching
   :class:`~repro_torch.serve.tier.ServingTier` (fuse-key batching +
   admission), reporting fused-batch stats and probe throughput.
-* PROD (--mesh single|multi) is not ported yet: the device mesh and the
-  sharding layouts are, the dry-run accounting of the full config on them
-  is not (ROADMAP A14b).
+* PROD (--mesh single|multi): accounts for one decode step of the FULL
+  config's decode_32k cell on the production mesh (a fake process group
+  of 256 or 512 ranks) and prints the record
+  (:func:`repro_torch.launch.dryrun.run_cell`); ``--device cpu`` gives the
+  mesh the CPU device type.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --tier
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --mesh multi --device cpu
 """
 import argparse
+import sys
 import time
 
 
@@ -25,6 +29,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mesh", choices=["local", "single", "multi"], default="local")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="accepted as the reference accepts it: --mesh always dry-runs")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
     ap.add_argument("--batch", type=int, default=4)
@@ -37,9 +43,12 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the dry-run accounting of the full config on the "
-            "production mesh is not ported yet (ROADMAP A14b)")
+        from repro_torch.launch.dryrun import fake_production_mesh, run_cell
+        device_type = "cpu" if args.device == "cpu" else "cuda"
+        with fake_production_mesh(args.mesh, device_type) as mesh:
+            rec = run_cell(args.arch, "decode_32k", mesh, args.mesh)
+        print({k: v for k, v in rec.items() if k != "trace"})
+        sys.exit(0 if rec["status"] in ("ok", "skip") else 1)
 
     import numpy as np
     import torch

@@ -4,15 +4,21 @@
   ``--device`` (default: the card) with the provenance-carrying data
   pipeline, the fault-tolerant loop and async checkpoints; rerun with the
   same ``--ckpt-dir`` and it resumes from the latest checkpoint.
-* PROD (--mesh single|multi) is not ported yet: the device mesh and the
-  sharding layouts are (``launch.mesh``, ``launch.sharding``), the dry-run
-  accounting of the full config's step on them is not (ROADMAP A14b).
+* PROD (--mesh single|multi): accounts for one step of the FULL
+  config's train_4k cell on the production mesh (256 or 512 ranks of a
+  fake process group, one process, nothing allocated) with the FSDP x TP
+  layout, and prints the memory, cost and collective record
+  (:func:`repro_torch.launch.dryrun.run_cell`).  ``--device cpu`` gives the
+  mesh the CPU device type; by default it is the card's.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --device cpu --steps 30
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \
+        --mesh multi --dry-run --device cpu
 """
 import argparse
 import os
+import sys
 import tempfile
 
 
@@ -23,6 +29,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", choices=["local", "single", "multi"], default="local")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="accepted as the reference accepts it: --mesh always dry-runs")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
@@ -30,9 +38,12 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the dry-run accounting of the full config's train "
-            "step on the production mesh is not ported yet (ROADMAP A14b)")
+        from repro_torch.launch.dryrun import fake_production_mesh, run_cell
+        device_type = "cpu" if args.device == "cpu" else "cuda"
+        with fake_production_mesh(args.mesh, device_type) as mesh:
+            rec = run_cell(args.arch, "train_4k", mesh, args.mesh)
+        print({k: v for k, v in rec.items() if k != "trace"})
+        sys.exit(0 if rec["status"] in ("ok", "skip") else 1)
 
     import torch
 

@@ -27,21 +27,31 @@ Attention serves four duties from one implementation:
     as a ring buffer;
   * cross         — the encoder-decoder's decoder queries against the
     encoder's K/V (no RoPE, no mask), computed once per request.
+
+The models call each sublayer — a pre-norm and its attention or MLP, or
+the head — through ``attn_block``, ``mlp_block``, ``logits_block`` and
+their kin, which run the functions here on plain tensors and, on
+DTensors, as one tensor-parallel region (:mod:`.tp`) on each rank's rows
+and heads, FFN columns or vocabulary slice.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import math
+from types import SimpleNamespace
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import tp as TP
 
 __all__ = [
     "rmsnorm",
@@ -63,6 +73,13 @@ __all__ = [
     "cross_kv",
     "cross_attn_decode",
     "mlp_forward",
+    "attn_block",
+    "attn_decode_block",
+    "cross_block",
+    "cross_kv_block",
+    "cross_decode_block",
+    "mlp_block",
+    "logits_block",
     "init_dense",
     "FLOAT32_PARAMS",
     "cast_module",
@@ -185,16 +202,48 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator, device=None,
     return a
 
 
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``; a DTensor's gradient is first brought back to ``x``'s
+    placements (a redistribution to the same placements), so the view
+    before it receives a gradient it can split (DTensor cannot view one
+    sharded otherwise unevenly)."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
+def _split_heads(t: torch.Tensor, b: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd)."""
+    return t.reshape(b, t.shape[1], -1, hd)
+
+
+def _kv_proj(p, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w (a K or V projection); a tensor-parallel rank that holds a
+    column slice of w gathers the whole projection (``p.kv_gather``, see
+    :func:`_attn_share`)."""
+    out = x @ w.to(x.dtype)
+    ax = getattr(p, "kv_gather", None)
+    return out if ax is None else TP.all_gather(out, ax)
+
+
+def _pick(p, t: torch.Tensor) -> torch.Tensor:
+    """The K/V heads of ``t`` (B, S, KV, hd) that this rank's query heads
+    read, one per query head, where a tensor-parallel rank holds fewer K/V
+    heads than a whole one (``p.kv_pick``, see :func:`_attn_region`);
+    ``t`` itself otherwise."""
+    pick = getattr(p, "kv_pick", None)
+    if pick is None:
+        return t
+    return t.index_select(2, torch.tensor(pick, device=t.device))
+
+
 def _project_qkv(cfg: ModelConfig, p: Attn, x: torch.Tensor, rot: Optional[Rot],
                  kv_in: Optional[torch.Tensor] = None):
     """Q from ``x``, K/V from ``kv_in`` (default ``x``)."""
-    b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt = x.dtype
+    b, hd, dt = x.shape[0], cfg.hd, x.dtype
     kv_in = x if kv_in is None else kv_in
-    q = (x @ p.wq.to(dt)).reshape(b, -1, h, hd)
-    k = (kv_in @ p.wk.to(dt)).reshape(b, -1, kv, hd)
-    v = (kv_in @ p.wv.to(dt)).reshape(b, -1, kv, hd)
+    q = _split_heads(x @ p.wq.to(dt), b, hd)
+    k, v = (_split_heads(_kv_proj(p, kv_in, w), b, hd) for w in (p.wk, p.wv))
     if cfg.qk_norm and p.q_scale is not None:
         q = rmsnorm(q, p.q_scale)
         k = rmsnorm(k, p.k_scale)
@@ -262,8 +311,21 @@ def attn_prefill(cfg: ModelConfig, p: Attn, x: torch.Tensor, kind: str, q_chunk:
         rot = rope_angles(torch.arange(x.shape[1], device=x.device)[None, :], cfg.hd,
                           cfg.rope_theta)
     q, k, v = _project_qkv(cfg, p, x, rot)
-    out = _attend(cfg, q, k, v, kind, q_chunk)
+    out = _attend(cfg, q, _pick(p, k), _pick(p, v), kind, q_chunk)
     return out @ p.wo.to(x.dtype), {"k": k, "v": v}
+
+
+def _ring(cfg: ModelConfig, kind: str, s_max: int) -> bool:
+    return kind == "local" and cfg.window > 0 and s_max <= cfg.window
+
+
+def _slot(cfg: ModelConfig, kind: str, pos: int, s_max: int) -> int:
+    """The cache slot a decode step at ``pos`` writes."""
+    if _ring(cfg, kind, s_max):
+        return pos % s_max
+    if 0 <= pos < s_max:
+        return pos
+    raise ValueError(f"decode position {pos} outside the cache of {s_max} positions")
 
 
 def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -280,13 +342,8 @@ def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, tor
     q, k_new, v_new = _project_qkv(cfg, p, x, rot)
     k, v = cache["k"], cache["v"]
     s_max = k.shape[1]
-    ring = kind == "local" and cfg.window > 0 and s_max <= cfg.window
-    if ring:
-        slot = pos % s_max
-    elif 0 <= pos < s_max:
-        slot = pos
-    else:
-        raise ValueError(f"decode position {pos} outside the cache of {s_max} positions")
+    ring = _ring(cfg, kind, s_max)
+    slot = _slot(cfg, kind, pos, s_max)
     k[:, slot] = k_new[:, 0].to(k.dtype)
     v[:, slot] = v_new[:, 0].to(v.dtype)
     kj = torch.arange(s_max, device=x.device)
@@ -297,7 +354,7 @@ def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, tor
         mask = (kj <= pos) & (kj > pos - cfg.window)
     else:
         mask = kj <= pos
-    out = _sdpa(q, k, v, mask.reshape(1, s_max))
+    out = _sdpa(q, _pick(p, k), _pick(p, v), mask.reshape(1, s_max))
     return out @ p.wo.to(x.dtype), cache
 
 
@@ -309,25 +366,23 @@ def cross_attn_forward(cfg: ModelConfig, p: Attn, x: torch.Tensor,
                        enc: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) attends to every position of enc (B, S_enc, D)."""
     q, k, v = _project_qkv(cfg, p, x, None, enc)
-    return _sdpa(q, k, v, None) @ p.wo.to(x.dtype)
+    return _sdpa(q, _pick(p, k), _pick(p, v), None) @ p.wo.to(x.dtype)
 
 
 def cross_kv(cfg: ModelConfig, p: Attn, enc: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The cross K/V of enc (B, S_enc, D): ``ck``/``cv`` (B, S_enc, KV, hd)."""
-    b = enc.shape[0]
-    kv, hd = cfg.n_kv_heads, cfg.hd
-    dt = enc.dtype
-    return {"ck": (enc @ p.wk.to(dt)).reshape(b, -1, kv, hd),
-            "cv": (enc @ p.wv.to(dt)).reshape(b, -1, kv, hd)}
+    b, hd = enc.shape[0], cfg.hd
+    return {"ck": _split_heads(_kv_proj(p, enc, p.wk), b, hd),
+            "cv": _split_heads(_kv_proj(p, enc, p.wv), b, hd)}
 
 
 def cross_attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor,
                       ckv: Dict[str, torch.Tensor]) -> torch.Tensor:
     """x (B, S, D) against precomputed ``cross_kv`` (cast to x's dtype)."""
-    b = x.shape[0]
     dt = x.dtype
-    q = (x @ p.wq.to(dt)).reshape(b, -1, cfg.n_heads, cfg.hd)
-    return _sdpa(q, ckv["ck"].to(dt), ckv["cv"].to(dt), None) @ p.wo.to(dt)
+    q = _split_heads(x @ p.wq.to(dt), x.shape[0], cfg.hd)
+    k, v = _pick(p, ckv["ck"].to(dt)), _pick(p, ckv["cv"].to(dt))
+    return _sdpa(q, k, v, None) @ p.wo.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +419,245 @@ def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:                   # GELU 2-matrix; jax.nn.gelu's default tanh form
         h = F.gelu(x @ p.wi.to(dt), approximate="tanh")
     return h @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Sublayers: a pre-norm and its attention or MLP, the residual stream's
+# increment.  On a DTensor each runs as one tensor-parallel region
+# (:mod:`.tp`): the functions above on each rank's rows and heads or FFN
+# columns.
+# ---------------------------------------------------------------------------
+_ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "q_scale": None, "k_scale": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class _AttnShare:
+    """This rank's share of an attention: its config (head counts), the
+    weights passed to the region with the dim each splits on, the K/V heads
+    its query heads read when it holds fewer than one K/V head
+    (:func:`_pick`), whether it then projects a column slice of every K/V
+    head and gathers them (:func:`_kv_proj`), and the placements of the
+    region's K/V tensors."""
+
+    ax: TP.Axes
+    split: bool
+    cfg: ModelConfig
+    names: Tuple[str, ...]
+    dims: Tuple[Optional[int], ...]
+    pick: Optional[Tuple[int, ...]]
+    kv_split: bool
+    kv_gather: bool
+
+    def kv(self, x: DTensor) -> Tuple:
+        """K/V (B, S, KV, hd): rows as x's, heads split iff they split."""
+        return TP.rows(x, self.ax, Shard(2) if self.kv_split else None)
+
+    def keep(self, names: Tuple[str, ...]) -> "_AttnShare":
+        """The share of the weights ``names`` alone (a step that reads no
+        others)."""
+        kept = tuple(n for n in self.names if n in names)
+        return dataclasses.replace(self, names=kept,
+                                   dims=tuple(self.dims[self.names.index(n)] for n in kept))
+
+    def weights(self, p: Attn):
+        return [getattr(p, n) for n in self.names]
+
+    def local(self, ws) -> SimpleNamespace:
+        return SimpleNamespace(**{**dict.fromkeys(_ATTN_DIMS), **dict(zip(self.names, ws)),
+                                  "kv_pick": self.pick,
+                                  "kv_gather": self.ax if self.kv_gather else None})
+
+
+def _attn_share(cfg: ModelConfig, p: Attn, x: DTensor) -> _AttnShare:
+    """Query heads split over "tp" where they divide; K/V heads where they
+    divide too, else each rank projects its columns of every K/V head (the
+    whole of them where the columns do not divide either), gathers them and
+    reads those of its query heads."""
+    ax = TP.axes(x)
+    split = ax.tp is not None and cfg.n_heads % ax.n == 0
+    kv_split = split and cfg.n_kv_heads % ax.n == 0
+    kv_gather = split and not kv_split and cfg.n_kv_heads * cfg.hd % ax.n == 0
+    names = tuple(n for n in _ATTN_DIMS if getattr(p, n) is not None)
+    dims = tuple(_ATTN_DIMS[n] if (n in ("wq", "wo") or kv_split or kv_gather) else None
+                 for n in names)
+    local, pick = cfg, None
+    if split:
+        h = cfg.n_heads // ax.n
+        local = dataclasses.replace(cfg, n_heads=h, head_dim=cfg.hd, n_kv_heads=(
+            cfg.n_kv_heads // ax.n if kv_split else cfg.n_kv_heads))
+        if not kv_split:
+            g = cfg.n_heads // cfg.n_kv_heads
+            pick = tuple((ax.rank * h + i) // g for i in range(h))
+    return _AttnShare(ax, split, local, names, dims, pick, kv_split, kv_gather)
+
+
+def _norm_weights(cfg: ModelConfig, scale: Optional[torch.Tensor]):
+    return ([scale], [None]) if cfg.norm != "nonparam_ln" else ([], [])
+
+
+def attn_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn, x: torch.Tensor,
+               kind: str, q_chunk: int = 0, rot: Optional[Rot] = None):
+    """``attn_prefill`` of the normed x: (increment, {"k", "v"})."""
+    if not isinstance(x, DTensor):
+        return attn_prefill(cfg, p, norm_apply(cfg, x, scale), kind, q_chunk, rot)
+    sh = _attn_share(cfg, p, x)
+    sw, sd = _norm_weights(cfg, scale)
+
+    def fn(xl, *ws):
+        s = ws[0] if sw else None
+        out, kv = attn_block(sh.cfg, s, sh.local(ws[len(sw):]), xl, kind, q_chunk, rot)
+        return out, kv["k"], kv["v"]
+
+    kvp = sh.kv(x)
+    out, k, v = TP.region(fn, x, sw + sh.weights(p), sd + list(sh.dims),
+                          split=sh.split, outs=(TP.partial(x, sh.ax, sh.split), kvp, kvp))
+    return out.redistribute(x.device_mesh, x.placements), {"k": k, "v": v}
+
+
+def attn_decode_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn,
+                      x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+                      kind: str = "causal", rot: Optional[Rot] = None) -> torch.Tensor:
+    """``attn_decode`` of the normed x: the increment; ``cache`` is written
+    in place."""
+    if not isinstance(x, DTensor):
+        return attn_decode(cfg, p, norm_apply(cfg, x, scale), cache, pos, kind, rot)[0]
+    sh = _attn_share(cfg, p, x)
+    sw, sd = _norm_weights(cfg, scale)
+    slot = _slot(cfg, kind, pos, cache["k"].shape[1])
+
+    def fn(xl, *ws):
+        s = ws[0] if sw else None
+        kl, vl = ws[-2:]
+        out = attn_decode_block(sh.cfg, s, sh.local(ws[len(sw):-2]), xl, {"k": kl, "v": vl},
+                                pos, kind, rot)
+        return out, kl[:, slot:slot + 1], vl[:, slot:slot + 1]
+
+    kvp = sh.kv(x)
+    out, k_new, v_new = TP.region(
+        fn, x, sw + sh.weights(p), sd + list(sh.dims), split=sh.split,
+        extra=(cache["k"], cache["v"]), extra_placements=(kvp, kvp),
+        outs=(TP.partial(x, sh.ax, sh.split), kvp, kvp))
+    if tuple(cache["k"].placements) != kvp:     # the region wrote a gathered copy
+        _write_slot(cache["k"], slot, k_new)
+        _write_slot(cache["v"], slot, v_new)
+    return out.redistribute(x.device_mesh, x.placements)
+
+
+def _write_slot(cache: DTensor, slot: int, new: DTensor) -> None:
+    """``cache[:, slot] = new[:, 0]`` on the rank whose shard of a cache
+    split over its sequence holds the slot (``new``'s rows and heads are
+    the cache's local ones)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, off = compute_local_shape_and_global_offset(cache.shape, cache.device_mesh,
+                                                       cache.placements)
+    local, row = cache.to_local(), new.to_local()
+    if (row.shape[0], *row.shape[2:]) != (local.shape[0], *local.shape[2:]):
+        raise ValueError(f"cache shard {tuple(local.shape)} and new rows {tuple(row.shape)}")
+    if off[1] <= slot < off[1] + shape[1]:
+        local[:, slot - off[1]] = row[:, 0].to(local.dtype)
+
+
+def cross_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn, x: torch.Tensor,
+                enc: torch.Tensor) -> torch.Tensor:
+    """``cross_attn_forward`` of the normed x against enc: the increment."""
+    if not isinstance(x, DTensor):
+        return cross_attn_forward(cfg, p, norm_apply(cfg, x, scale), enc)
+    sh = _attn_share(cfg, p, x)
+    sw, sd = _norm_weights(cfg, scale)
+
+    def fn(xl, *ws):
+        s = ws[0] if sw else None
+        return cross_block(sh.cfg, s, sh.local(ws[len(sw):-1]), xl, ws[-1])
+
+    return TP.region(fn, x, sw + sh.weights(p), sd + list(sh.dims),
+                     split=sh.split, extra=(enc,), extra_placements=(TP.rows(x, sh.ax),),
+                     extra_grads=(TP.partial(x, sh.ax, sh.split),))
+
+
+def cross_kv_block(cfg: ModelConfig, p: Attn, enc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``cross_kv``; a DTensor enc gives each rank its K/V heads."""
+    if not isinstance(enc, DTensor):
+        return cross_kv(cfg, p, enc)
+    sh = _attn_share(cfg, p, enc).keep(("wk", "wv"))
+
+    def fn(el, *ws):
+        kv = cross_kv(sh.cfg, sh.local(ws), el)
+        return kv["ck"], kv["cv"]
+
+    kvp = sh.kv(enc)
+    ck, cv = TP.region(fn, enc, sh.weights(p), sh.dims, split=sh.split, outs=(kvp, kvp))
+    return {"ck": ck, "cv": cv}
+
+
+def cross_decode_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn,
+                       x: torch.Tensor, ckv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``cross_attn_decode`` of the normed x against cached cross K/V."""
+    if not isinstance(x, DTensor):
+        return cross_attn_decode(cfg, p, norm_apply(cfg, x, scale), ckv)
+    # the K/V projections are in the cache: the step reads the rest only
+    sh = _attn_share(cfg, p, x).keep(("wq", "wo", "q_scale"))
+    sw, sd = _norm_weights(cfg, scale)
+
+    def fn(xl, *ws):
+        s = ws[0] if sw else None
+        return cross_decode_block(sh.cfg, s, sh.local(ws[len(sw):-2]), xl,
+                                  {"ck": ws[-2], "cv": ws[-1]})
+
+    kvp = sh.kv(x)
+    return TP.region(fn, x, sw + sh.weights(p), sd + list(sh.dims), split=sh.split,
+                     extra=(ckv["ck"], ckv["cv"]), extra_placements=(kvp, kvp))
+
+
+def mlp_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: MLP,
+              x: torch.Tensor) -> torch.Tensor:
+    """``mlp_forward`` of the normed x: the increment, FFN columns split
+    over "tp" where they divide."""
+    if not isinstance(x, DTensor):
+        return mlp_forward(p, norm_apply(cfg, x, scale))
+    ax = TP.axes(x)
+    split = ax.tp is not None and cfg.d_ff % ax.n == 0
+    sw, sd = _norm_weights(cfg, scale)
+    names = [n for n in ("wi", "wg", "wo") if getattr(p, n) is not None]
+
+    def fn(xl, *ws):
+        s = ws[0] if sw else None
+        local = SimpleNamespace(**{"wg": None, **dict(zip(names, ws[len(sw):]))})
+        return mlp_block(cfg, s, local, xl)
+
+    return TP.region(fn, x, sw + [getattr(p, n) for n in names],
+                     sd + [0 if n == "wo" else 1 for n in names], split=split)
+
+
+def logits_block(cfg: ModelConfig, scale: Optional[torch.Tensor], w: torch.Tensor,
+                 x: torch.Tensor, tied: bool) -> torch.Tensor:
+    """The head: float32 logits (..., padded V) of the normed x against
+    ``w`` (D, V), or the embedding (V, D) when ``tied``; the padding
+    columns are ``NEG_INF`` (they never win, and get no gradient).  On a
+    DTensor each rank computes its slice of the vocabulary, split over
+    "tp" where it divides."""
+    if not isinstance(x, DTensor):
+        return _logits(cfg, norm_apply(cfg, x, scale), w.T if tied else w, 0)
+    ax = TP.axes(x)
+    split = ax.tp is not None and cfg.padded_vocab % ax.n == 0
+    v0 = ax.rank * (cfg.padded_vocab // ax.n) if split else 0
+    sw, sd = _norm_weights(cfg, scale)
+
+    def fn(xl, *ws):
+        h = norm_apply(cfg, xl, ws[0] if sw else None)
+        return _logits(cfg, h, ws[-1].T if tied else ws[-1], v0)
+
+    out = TP.rows(x, ax, Shard(x.ndim - 1) if split else None)
+    return TP.region(fn, x, sw + [w], sd + [0 if tied else 1], split=split, outs=out)
+
+
+def _logits(cfg: ModelConfig, h: torch.Tensor, w: torch.Tensor, v0: int) -> torch.Tensor:
+    """Logits of vocabulary columns [v0, v0 + w's columns)."""
+    logits = (h @ w.to(h.dtype)).float()
+    pad = max(cfg.vocab - v0, 0)
+    if pad < logits.shape[-1]:
+        logits[..., pad:] = NEG_INF
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -147,10 +147,9 @@ def cast_params(cfg: ModelConfig, params: LM, dtype: torch.dtype, device=None) -
 def _ffn(cfg: ModelConfig, layer: Layer, x: torch.Tensor) -> torch.Tensor:
     if layer.spec.ffn == "none":
         return x
-    h = C.norm_apply(cfg, x, layer.post_norm.scale)
     if layer.spec.ffn == "moe":
-        return x + M.moe_forward(cfg, layer.moe, h)
-    return x + C.mlp_forward(layer.mlp, h)
+        return x + M.moe_block(cfg, layer.post_norm.scale, layer.moe, x)
+    return x + C.mlp_block(cfg, layer.post_norm.scale, layer.mlp, x)
 
 
 def _rot(cfg: ModelConfig, positions: torch.Tensor):
@@ -166,11 +165,8 @@ def _embed(params: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
-    x = C.norm_apply(cfg, x, params.final_norm.scale)
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = (x @ w.to(x.dtype)).float()
-    if cfg.padded_vocab != cfg.vocab:   # the padding rows never win (and get no gradient)
-        logits[..., cfg.vocab:] = C.NEG_INF
+    w = params.embed if cfg.tie_embeddings else params.lm_head
+    logits = C.logits_block(cfg, params.final_norm.scale, w, x, cfg.tie_embeddings)
     return PS.hint(logits, "dp", None, "tp")
 
 
@@ -180,11 +176,12 @@ def _prefill_layers(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk:
     rot = _rot(cfg, torch.arange(tokens.shape[1], device=tokens.device)[None, :])
     caches = []
     for layer in params.layers:
-        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+        scale = layer.pre_norm.scale
         if layer.spec.mixer == "ssd":
-            out, lc = S.ssd_forward(cfg, layer.ssd, h, return_cache=True)
+            out, lc = S.ssd_block(cfg, scale, layer.ssd, x, return_cache=True)
         else:
-            out, lc = C.attn_prefill(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+            out, lc = C.attn_block(cfg, scale, layer.attn, x, _KIND[layer.spec.mixer], q_chunk,
+                                   rot)
         caches.append(lc)
         x = _ffn(cfg, layer, x + out)
     return x, caches
@@ -196,11 +193,11 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, q_chunk: int,
     sp = bool((PS.policy() or {}).get("sp"))
     if sp:
         x = PS.hint(x, "dp", "sp", None)
-    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+    scale = layer.pre_norm.scale
     if layer.spec.mixer == "ssd":
-        x = x + S.ssd_forward(cfg, layer.ssd, h)
+        x = x + S.ssd_block(cfg, scale, layer.ssd, x)
     else:
-        x = x + C.attn_forward(cfg, layer.attn, h, _KIND[layer.spec.mixer], q_chunk, rot)
+        x = x + C.attn_block(cfg, scale, layer.attn, x, _KIND[layer.spec.mixer], q_chunk, rot)[0]
     if sp and layer.spec.ffn != "none":
         x = PS.hint(x, "dp", "sp", None)
     return _ffn(cfg, layer, x)
@@ -222,7 +219,7 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, q_chunk: int = 0
     repeated tokens add.  With ``cfg.remat`` each block of ``cfg.block`` is
     rematerialised in the backward pass (:func:`~.common.remat_call`); the
     tail is not, as in the reference."""
-    x = PS.hint(params.embed.to(dtype)[tokens], "dp", None, None)
+    x = PS.hint(C.pin_grad(params.embed).to(dtype)[tokens], "dp", None, None)
     rot = _rot(cfg, torch.arange(tokens.shape[1], device=tokens.device)[None, :])
     per = len(cfg.block)
     for j in range(cfg.n_blocks):
@@ -278,10 +275,11 @@ def decode_step(cfg: ModelConfig, params: LM, token: torch.Tensor, pos: int, cac
     x = _embed(params, token[:, None], dtype)
     rot = _rot(cfg, torch.full((1, 1), pos, device=token.device))
     for layer, lc in zip(params.layers, cache):
-        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
+        scale = layer.pre_norm.scale
         if layer.spec.mixer == "ssd":
-            out, _ = S.ssd_decode(cfg, layer.ssd, h, lc)
+            out = S.ssd_decode_block(cfg, scale, layer.ssd, x, lc)
         else:
-            out, _ = C.attn_decode(cfg, layer.attn, h, lc, pos, _KIND[layer.spec.mixer], rot)
+            out = C.attn_decode_block(cfg, scale, layer.attn, x, lc, pos, _KIND[layer.spec.mixer],
+                                      rot)
         x = _ffn(cfg, layer, x + out)
     return _head(cfg, params, x)[:, 0, :], cache

@@ -20,26 +20,27 @@ GROUPS: the tokens are reshaped into G groups, G = the sharding policy's
 policy), and each group is routed, dispatched and dropped on its own with
 a capacity per group, as the reference does.  The launcher sets G = the
 number of data shards, so each group is one data shard's tokens: on a
-DTensor the groups are hinted over the data axes and each rank runs its
-own groups locally (``local_map``), with the experts' weights gathered
-whole.  Expert parallelism over "model" is not done: the ``buf`` hint is
-the identity on local groups.
+DTensor (:func:`moe_block`, a tensor-parallel region of :mod:`.tp`) each
+rank routes its own groups and computes its run of the experts, split
+over "model" where they divide (expert parallelism, the reference's
+``buf`` hint), with their weights gathered whole over the data axes; the
+ranks' partial sums meet in the caller's residual add.
 """
 from __future__ import annotations
 
-import functools
 import math
+from typing import Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
 from repro_torch.models import pshard as PS
+from repro_torch.models import tp as TP
 
-__all__ = ["MoE", "init_moe", "moe_forward"]
+__all__ = ["MoE", "init_moe", "moe_forward", "moe_block"]
 
 
 class MoE(nn.Module):
@@ -80,11 +81,14 @@ def _n_groups(t: int) -> int:
 
 
 def _grouped(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
-             wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+             wg: torch.Tensor, wo: torch.Tensor, e0: int = 0) -> torch.Tensor:
     """The FFN of every group of xt (G, Tg, D) -> (G, Tg, D), each group
-    routed, dispatched and dropped on its own."""
+    routed, dispatched and dropped on its own.  ``wi``/``wg``/``wo`` may
+    hold a run of the experts from ``e0`` on (a tensor-parallel rank's):
+    the result is then their part of the sum."""
     g, tg, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
+    el = wi.shape[0]
     dt = xt.dtype
     dev = xt.device
 
@@ -110,48 +114,62 @@ def _grouped(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor, wi: torch
     tok_of_slot.scatter_(1, slot, tok_sorted)
     w_of_slot = torch.zeros((g, e * cap + 1), dtype=dt, device=dev)
     w_of_slot.scatter_(1, slot, torch.gather(topw.reshape(g, tg * k), 1, order))
-    tok_of_slot, w_of_slot = tok_of_slot[:, :e * cap], w_of_slot[:, :e * cap]
+    # the slots of experts [e0, e0 + el)
+    tok_of_slot = tok_of_slot[:, e0 * cap:(e0 + el) * cap]
+    w_of_slot = w_of_slot[:, e0 * cap:(e0 + el) * cap]
 
     # the rows of group j live at j * (tg + 1) of the padded token stream
-    rows = (tok_of_slot + torch.arange(g, device=dev)[:, None] * (tg + 1)).reshape(g * e * cap)
+    rows = (tok_of_slot + torch.arange(g, device=dev)[:, None] * (tg + 1)).reshape(g * el * cap)
     xt_pad = torch.cat([xt, xt.new_zeros(g, 1, d)], dim=1).reshape(g * (tg + 1), d)
-    buf = xt_pad[rows].reshape(g, e, cap, d)                     # (G, E, C, D)
-    buf = PS.hint(buf, "dp", "tp", None, None)                   # identity on local groups
-    buf = buf.transpose(0, 1).reshape(e, g * cap, d)             # (E, G*C, D)
+    buf = xt_pad[rows].reshape(g, el, cap, d)                    # (G, E, C, D)
+    buf = buf.transpose(0, 1).reshape(el, g * cap, d)            # (E, G*C, D)
     h_g = torch.bmm(buf, wg.to(dt))
     h = h_g * torch.sigmoid(h_g) * torch.bmm(buf, wi.to(dt))
     y = torch.bmm(h, wo.to(dt))                                  # (E, G*C, D)
-    y = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g * e * cap, d)
+    y = y.reshape(el, g, cap, d).transpose(0, 1).reshape(g * el * cap, d)
 
     out = xt.new_zeros(g * (tg + 1), d)
-    out.index_add_(0, rows, y * w_of_slot.reshape(g * e * cap)[:, None])
+    out.index_add_(0, rows, y * w_of_slot.reshape(g * el * cap)[:, None])
     return out.reshape(g, tg + 1, d)[:, :tg]
 
 
-def _grouped_on_shards(cfg: ModelConfig, xt: DTensor, weights) -> DTensor:
-    """:func:`_grouped` on each rank's own groups of a DTensor xt (G sharded
-    over the data axes, or replicated): the weights are gathered whole
-    (FSDP), their gradients summed over the ranks whose groups differ."""
-    xp = list(xt.placements)          # a list: one output's placements
-    wp = [Replicate() for _ in xp]
-    grad_wp = [Partial() if isinstance(pl, Shard) else Replicate() for pl in xp]
-    fn = local_map(functools.partial(_grouped, cfg), out_placements=xp,
-                   in_placements=(xp,) + (wp,) * len(weights),
-                   in_grad_placements=(xp,) + (grad_wp,) * len(weights),
-                   device_mesh=xt.device_mesh, redistribute_inputs=True)
-    return fn(xt, *weights)
-
-
 def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D).  A DTensor x runs each rank's groups
-    locally."""
+    """x: (B, S, D) -> (B, S, D)."""
     b, s, d = x.shape
     g = _n_groups(b * s)
-    xt = PS.hint(x.reshape(g, b * s // g, d), "dp", None, None)
-    weights = (p.router, p.wi, p.wg, p.wo)
-    if isinstance(xt, DTensor):
-        out = _grouped_on_shards(cfg, xt, weights)
-    else:
-        out = _grouped(cfg, xt, *weights)
-    out = PS.hint(out, "dp", None, None)
+    out = _grouped(cfg, x.reshape(g, b * s // g, d), p.router, p.wi, p.wg, p.wo)
     return out.reshape(b, s, d)
+
+
+def moe_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: MoE,
+              x: torch.Tensor) -> torch.Tensor:
+    """``moe_forward`` of the normed x: the increment.  On a DTensor each
+    rank routes the groups of its own rows (whole groups: x is gathered
+    over the data axes where its rows are not) and computes its run of the
+    experts, split over "tp" where they divide (expert parallelism); the
+    experts' weights are gathered whole over the data axes."""
+    if not isinstance(x, DTensor):
+        return moe_forward(cfg, p, C.norm_apply(cfg, x, scale))
+    b, s, d = x.shape
+    g = _n_groups(b * s)
+    ax = TP.axes(x)
+    split = ax.tp is not None and cfg.n_experts % ax.n == 0
+    row_ranks = math.prod(ax.mesh.size(i) for i, q in enumerate(TP.rows(x, ax)) if q.is_shard())
+    xin = x
+    if g % row_ranks:           # a rank's rows would split a group
+        xin = x.redistribute(ax.mesh, [Replicate()] * ax.mesh.ndim)
+        row_ranks = 1
+    gl = g // row_ranks
+    el = cfg.n_experts // ax.n if split else cfg.n_experts
+    e0 = ax.rank * el if split else 0
+    sw, sd = C._norm_weights(cfg, scale)
+
+    def fn(xl, *ws):
+        h = C.norm_apply(cfg, xl, ws[0] if sw else None)
+        bl = h.shape[0]
+        out = _grouped(cfg, h.reshape(gl, bl * s // gl, d), *ws[len(sw):], e0=e0)
+        return out.reshape(bl, s, d)
+
+    out = TP.region(fn, xin, sw + [p.router, p.wi, p.wg, p.wo], sd + [None, 0, 0, 0],
+                    split=split)
+    return out.redistribute(ax.mesh, x.placements)

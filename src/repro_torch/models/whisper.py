@@ -29,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import common as C
+from repro_torch.models import pshard as PS
 
 __all__ = ["Whisper", "init_params", "cast_params", "encode", "forward", "prefill",
            "decode_step", "init_cache", "encode_into_cache"]
@@ -106,25 +107,21 @@ def _sinusoid(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
 
 
 def _logits(cfg: ModelConfig, params: Whisper, x: torch.Tensor) -> torch.Tensor:
-    logits = (x @ params.embed.T.to(x.dtype)).float()
-    if cfg.padded_vocab != cfg.vocab:
-        logits[..., cfg.vocab:] = C.NEG_INF
-    return logits
+    return C.logits_block(cfg, params.final_norm.scale, params.embed, x, tied=True)
 
 
 def _embed(cfg: ModelConfig, params: Whisper, tokens: torch.Tensor, dtype) -> torch.Tensor:
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    return params.embed[tokens].to(dtype) + _sinusoid(pos, cfg.d_model, dtype)[None]
+    x = C.pin_grad(params.embed)[tokens].to(dtype) + _sinusoid(pos, cfg.d_model, dtype)[None]
+    return PS.hint(x, "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
 # Encoder (frames already embedded by the stub frontend)
 # ---------------------------------------------------------------------------
 def _enc_layer(cfg: ModelConfig, layer: EncLayer, q_chunk: int, x: torch.Tensor) -> torch.Tensor:
-    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-    x = x + C.attn_forward(cfg, layer.attn, h, kind="bidir", q_chunk=q_chunk)
-    h = C.norm_apply(cfg, x, layer.post_norm.scale)
-    return x + C.mlp_forward(layer.mlp, h)
+    x = x + C.attn_block(cfg, layer.pre_norm.scale, layer.attn, x, "bidir", q_chunk)[0]
+    return x + C.mlp_block(cfg, layer.post_norm.scale, layer.mlp, x)
 
 
 def _encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
@@ -133,7 +130,7 @@ def _encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
     rematerialised, saving nothing (the reference's policy for this family
     whatever ``cfg.remat_policy`` says)."""
     pos = torch.arange(frames.shape[1], device=frames.device)
-    x = frames + _sinusoid(pos, cfg.d_model, frames.dtype)[None]
+    x = PS.hint(frames + _sinusoid(pos, cfg.d_model, frames.dtype)[None], "dp", None, None)
     for layer in params.enc_layers:
         x = C.remat_call(cfg, functools.partial(_enc_layer, cfg, layer, q_chunk), x,
                          policy="nothing")
@@ -152,12 +149,9 @@ def encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _dec_layer(cfg: ModelConfig, layer: DecLayer, enc: torch.Tensor, q_chunk: int, rot,
                x: torch.Tensor) -> torch.Tensor:
-    h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-    x = x + C.attn_forward(cfg, layer.attn, h, "causal", q_chunk, rot)
-    h = C.norm_apply(cfg, x, layer.cross_norm.scale)
-    x = x + C.cross_attn_forward(cfg, layer.cross, h, enc)
-    h = C.norm_apply(cfg, x, layer.post_norm.scale)
-    return x + C.mlp_forward(layer.mlp, h)
+    x = x + C.attn_block(cfg, layer.pre_norm.scale, layer.attn, x, "causal", q_chunk, rot)[0]
+    x = x + C.cross_block(cfg, layer.cross_norm.scale, layer.cross, x, enc)
+    return x + C.mlp_block(cfg, layer.post_norm.scale, layer.mlp, x)
 
 
 def forward(cfg: ModelConfig, params: Whisper, frames: torch.Tensor, tokens: torch.Tensor,
@@ -169,12 +163,13 @@ def forward(cfg: ModelConfig, params: Whisper, frames: torch.Tensor, tokens: tor
     decoder layer is rematerialised, saving nothing."""
     enc = _encode(cfg, params, frames.to(dtype), q_chunk)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = params.embed.to(dtype)[tokens] + _sinusoid(pos, cfg.d_model, dtype)[None]
+    x = C.pin_grad(params.embed).to(dtype)[tokens] + _sinusoid(pos, cfg.d_model, dtype)[None]
+    x = PS.hint(x, "dp", None, None)
     rot = C.rope_angles(pos[None, :], cfg.hd, cfg.rope_theta)
     for layer in params.dec_layers:
         x = C.remat_call(cfg, functools.partial(_dec_layer, cfg, layer, enc, q_chunk, rot), x,
                          policy="nothing")
-    return _logits(cfg, params, C.norm_apply(cfg, x, params.final_norm.scale))
+    return _logits(cfg, params, x)
 
 
 def _prefill_layers(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
@@ -185,14 +180,11 @@ def _prefill_layers(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
                         cfg.rope_theta)
     caches = []
     for layer in params.dec_layers:
-        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-        out, kv = C.attn_prefill(cfg, layer.attn, h, "causal", q_chunk, rot)
+        out, kv = C.attn_block(cfg, layer.pre_norm.scale, layer.attn, x, "causal", q_chunk, rot)
         x = x + out
-        h = C.norm_apply(cfg, x, layer.cross_norm.scale)
-        ckv = C.cross_kv(cfg, layer.cross, enc)
-        x = x + C.cross_attn_decode(cfg, layer.cross, h, ckv)
-        h = C.norm_apply(cfg, x, layer.post_norm.scale)
-        x = x + C.mlp_forward(layer.mlp, h)
+        ckv = C.cross_kv_block(cfg, layer.cross, enc)
+        x = x + C.cross_decode_block(cfg, layer.cross_norm.scale, layer.cross, x, ckv)
+        x = x + C.mlp_block(cfg, layer.post_norm.scale, layer.mlp, x)
         caches.append({**kv, **ckv})
     return x, caches
 
@@ -203,8 +195,7 @@ def prefill(cfg: ModelConfig, params: Whisper, frames: torch.Tensor, tokens: tor
     """The encoder and the whole prompt: last-position logits (B, V) and
     each decoder layer's K/V at prompt length with its cross K/V."""
     x, caches = _prefill_layers(cfg, params, frames, tokens, q_chunk, dtype)
-    x = C.norm_apply(cfg, x[:, -1:, :], params.final_norm.scale)
-    return _logits(cfg, params, x)[:, 0, :], caches
+    return _logits(cfg, params, x[:, -1:, :])[:, 0, :], caches
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +220,7 @@ def encode_into_cache(cfg: ModelConfig, params: Whisper, frames: torch.Tensor, c
     cache's dtype: audio is served without prefilling any decoder token."""
     enc = encode(cfg, params, frames, q_chunk)
     for layer, lc in zip(params.dec_layers, cache):
-        ckv = C.cross_kv(cfg, layer.cross, enc)
+        ckv = C.cross_kv_block(cfg, layer.cross, enc)
         lc["ck"].copy_(ckv["ck"])
         lc["cv"].copy_(ckv["cv"])
     return cache
@@ -244,14 +235,11 @@ def decode_step(cfg: ModelConfig, params: Whisper, token: torch.Tensor, pos: int
     pos = int(pos)
     p = torch.full((1,), pos, device=token.device)
     x = params.embed[token[:, None]].to(dtype) + _sinusoid(p, cfg.d_model, dtype)[None]
+    x = PS.hint(x, "dp", None, None)
     rot = C.rope_angles(p[None, :], cfg.hd, cfg.rope_theta)
     for layer, lc in zip(params.dec_layers, cache):
-        h = C.norm_apply(cfg, x, layer.pre_norm.scale)
-        out, _ = C.attn_decode(cfg, layer.attn, h, lc, pos, "causal", rot)
-        x = x + out
-        h = C.norm_apply(cfg, x, layer.cross_norm.scale)
-        x = x + C.cross_attn_decode(cfg, layer.cross, h, lc)
-        h = C.norm_apply(cfg, x, layer.post_norm.scale)
-        x = x + C.mlp_forward(layer.mlp, h)
-    x = C.norm_apply(cfg, x, params.final_norm.scale)
+        x = x + C.attn_decode_block(cfg, layer.pre_norm.scale, layer.attn, x, lc, pos, "causal",
+                                    rot)
+        x = x + C.cross_decode_block(cfg, layer.cross_norm.scale, layer.cross, x, lc)
+        x = x + C.mlp_block(cfg, layer.post_norm.scale, layer.mlp, x)
     return _logits(cfg, params, x)[:, 0, :], cache

@@ -28,10 +28,11 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication, local_map
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp as TP
 from repro_torch.models.common import rebind, trainable
 from repro_torch.models.registry import get_model
 from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update, init_opt_state
@@ -65,14 +66,60 @@ def _mesh_scope(named: Dict[str, torch.Tensor]):
     return contextlib.nullcontext()
 
 
+def _take(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``; DTensor logits gather on each rank's own
+    rows (``local_map``)."""
+    if not isinstance(logits, DTensor):
+        return _take(logits, labels)
+    rows = list(logits.placements)
+    return local_map(_take, out_placements=rows, in_placements=(rows, rows),
+                     device_mesh=logits.device_mesh, redistribute_inputs=True)(logits, labels)
+
+
+def _nll_vocab_parallel(logits: DTensor, labels: DTensor, dim: int) -> DTensor:
+    """``logsumexp(logits) - logits[..., labels]`` of logits whose
+    vocabulary mesh dim ``dim`` splits, each rank on its own rows and slice
+    of the vocabulary: the slice's largest logit, its sum of exponentials
+    and the gold logit where the label falls in it (the label less the
+    slice's first column), each reduced over ``dim``.  No rank holds more
+    than its slice of the logits or of their gradient."""
+    mesh = logits.device_mesh
+    ax = TP.mesh_axis(mesh, dim)
+    v = logits.shape[-1]
+    if v % mesh.size(dim):
+        raise ValueError(f"vocabulary of {v} split unevenly over {mesh.size(dim)} ranks")
+    v0 = ax.rank * (v // mesh.size(dim))
+
+    def nll(lg, lab):
+        m = TP.all_reduce_max(lg.amax(-1, keepdim=True), ax)
+        logz = m[..., 0] + torch.log(TP.all_reduce(torch.exp(lg - m).sum(-1), ax, False))
+        local = lab - v0
+        hit = (local >= 0) & (local < lg.shape[-1])
+        gold = torch.where(hit, _take(lg, local.clamp(0, lg.shape[-1] - 1)), 0.0)
+        return logz - TP.all_reduce(gold, ax, False)
+
+    rows = [Replicate() if i == dim else p for i, p in enumerate(logits.placements)]
+    return local_map(nll, out_placements=rows, in_placements=(logits.placements, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean NLL of float32 logits (B, S, V): labels == -1 are
     ignored.  Returns (loss, number of unmasked labels, at least 1)."""
     mask = (labels >= 0).float()
     safe = torch.clamp_min(labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    vocab = [i for i, p in enumerate(getattr(logits, "placements", ()))
+             if p.is_shard(logits.ndim - 1)]
+    if len(vocab) > 1:
+        raise ValueError(f"vocabulary split over several mesh dims: {logits.placements}")
+    if vocab:
+        nll = _nll_vocab_parallel(logits, safe, vocab[0]) * mask
+    else:
+        nll = (torch.logsumexp(logits, dim=-1) - _gold(logits, safe)) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
     loss = nll.sum() / denom
     if isinstance(loss, DTensor):     # a sum over sharded rows: reduce it

@@ -80,7 +80,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.train.loop", "repro_torch.data.pipeline",
                 "repro_torch.launch.train", "repro_torch.launch.shapes",
                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-                "repro_torch.models.pshard", "repro_torch.core.distributed"):
+                "repro_torch.models.pshard", "repro_torch.core.distributed",
+                "repro_torch.launch.dryrun", "repro_torch.launch.hloanal",
+                "repro_torch.launch.perf", "repro_torch.models.tp"):
         assert repr(mod) in lines["MODULES"]
 
 
@@ -89,7 +91,8 @@ def test_no_import_statement_names_jax_or_the_reference():
     (``chip_smoke.main`` imports the port lazily); ``msgpack`` and
     ``ml_dtypes`` neither."""
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
-             *sorted((ROOT / "examples" / "torch").glob("*.py"))]
+             *sorted((ROOT / "examples" / "torch").glob("*.py")),
+             *sorted((ROOT / "tools").glob("*.py"))]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -105,8 +108,11 @@ def test_no_import_statement_names_jax_or_the_reference():
 
 
 def test_default_device_is_cuda_or_raises():
+    import torch.distributed as dist
+
     from repro_torch.core.pipeline import ProvenanceIndex
     from repro_torch.dataprep.table import Table
+    from repro_torch.launch.dryrun import fake_production_mesh, run_dryrun
     from repro_torch.provenance import ProvCatalog
 
     if torch.cuda.is_available():
@@ -119,6 +125,13 @@ def test_default_device_is_cuda_or_raises():
         ProvCatalog()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Table.from_columns({"a": np.zeros(2, np.float32)})
+    # the dry run's fake meshes are the card's unless the CPU is named
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_dryrun(["olmo-1b"], ["train_4k"], ("single",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with fake_production_mesh("multi"):
+            pass
+    assert not dist.is_initialized()
     assert ProvenanceIndex(device="cpu").device == torch.device("cpu")
 
 

@@ -244,3 +244,85 @@ def collective(rank, world, probes):
         res["auto_wider"] = ShardedProvenanceIndex(idx, world + 1).engine_name
         out[seed] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel regions: train, prefill and decode on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+TP_B, TP_S, TP_POS = 8, 16, 5
+
+
+def _tp_inputs(cfg, seed=2):
+    rng = np.random.default_rng(seed)
+    batch = train_batch(cfg.vocab, seed)
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((TRAIN_B, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _tp_serve(cfg, params, batch, mesh=None):
+    """Float32 prefill logits and caches of the batch's first half, then a
+    decode step at ``TP_POS`` over a fresh cache (whisper's cross K/V
+    written by ``encode_into_cache``): numpy, DTensors gathered."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import whisper
+    from repro_torch.models.registry import get_model
+
+    model = get_model(cfg)
+    half = {k: v[:TRAIN_B // 2] for k, v in batch.items()}
+    cache = model.init_cache(cfg, TRAIN_B, TP_S, dtype=torch.float32, device=CPU)
+    token = batch["tokens"][:, TP_POS]
+    if mesh is not None:
+        params = SD.place(params, SD.to_shardings(SD.param_pspecs(cfg, params, mesh), mesh))
+        half = SD.place(half, SD.to_shardings(SD.batch_pspecs(half, mesh), mesh))
+        specs = SD.cache_pspecs(cache, mesh)
+        layers = SD.place(dict(enumerate(cache)),
+                          SD.to_shardings(dict(enumerate(specs)), mesh))
+        cache = [layers[i] for i in range(len(specs))]
+        tok = SD.place({"token": token, "frames": batch.get("frames", token)},
+                       SD.to_shardings(SD.batch_pspecs(
+                           {"token": token, "frames": batch.get("frames", token)}, mesh), mesh))
+        token, frames = tok["token"], tok["frames"]
+    else:
+        frames = batch.get("frames")
+    with implicit_replication():
+        if cfg.is_encdec:
+            logits, caches = model.prefill(cfg, params, half["frames"], half["tokens"],
+                                           dtype=torch.float32)
+            whisper.encode_into_cache(cfg, params, frames, cache)
+        else:
+            logits, caches = model.prefill(cfg, params, half["tokens"], dtype=torch.float32)
+        step, cache = model.decode_step(cfg, params, token, TP_POS, cache, dtype=torch.float32)
+    return {"prefill": _full(logits), "prefill_cache": _full(dict(enumerate(caches))),
+            "decode": _full(step), "decode_cache": _full(dict(enumerate(cache)))}
+
+
+def tp(rank, world, archs):
+    """Every arch's float32 train step, prefill and decode on a (2, 2)
+    ("data", "model") mesh under the launcher's policy, and rank 0's
+    unsharded twins under the same policy."""
+    mesh = make_mesh((2, 2), ("data", "model"), CPU)
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        opt = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=4,
+                          moment_dtype=torch.float32)
+        policy = {"dp": ("data",), "tp": "model", "moe_groups": 2}
+        step = make_train_step(cfg, opt, n_micro=2, dtype=torch.float32)
+        batch = _tp_inputs(cfg)
+        with use_mesh(mesh), PS.use_policy(policy):
+            state = init_train_state(cfg, torch.Generator().manual_seed(0), opt, CPU)
+            params = state.params
+            state = SD.place(state, SD.to_shardings(SD.state_pspecs(cfg, state, mesh), mesh))
+            placed = SD.place(batch, SD.to_shardings(SD.batch_pspecs(batch, mesh), mesh))
+            res = {"sharded": _state_out(*step(state, placed)),
+                   "serve": _tp_serve(cfg, params, batch, mesh)}
+        if rank == 0:
+            with PS.use_policy(policy):
+                state = init_train_state(cfg, torch.Generator().manual_seed(0), opt, CPU)
+                res["plain"] = _state_out(*step(state, batch))
+                res["plain_serve"] = _tp_serve(cfg, state.params, batch)
+        out[arch] = res
+    return out if rank == 0 else {}
