@@ -163,9 +163,17 @@ PyTorch built for CUDA.  It
    argument bytes equal the card's state and batch exactly, whose dot
    FLOPs equal ``train_step_flops`` with remat off and on, and whose predicted peak is within 20% of the card's over real
    steps, its bound beside the measured ms a step; ``run_cell`` on
-   OLMo-1B's four shapes on 256 fake ranks and llama3-405b's train_4k on
-   512 (status, memory, FLOPs, collective bytes, bound), and ``perf``'s
-   ``lowmem`` below ``base`` in temp; then (``examples``) the seven
+   OLMo-1B's four shapes and the four ``long_500k`` cells (gemma3-12b,
+   gemma3-1b, mamba2-370m, jamba-1.5-large: batch 1, the cache split over
+   its sequence; gemma3-12b's all-gather at most 5.5 GB a device) on 256
+   fake ranks and llama3-405b's train_4k on 512 (status, memory, FLOPs,
+   collective bytes, bound), and ``perf``'s ``lowmem`` below ``base`` in
+   temp; then (``long_decode``) gemma3-1b at full width over a batch-1
+   cache of 524,288 positions filled from a seed: 8 decode steps with the
+   whole cache against the same steps with every cache read in 16 runs
+   and merged (``partial_decode_attn``, ``merge_partials``), equal within
+   1e-5 in float32 and 5e-2 of the largest logit in bf16, ms a step
+   against its byte bound, peak memory and idle share; then (``examples``) the seven
    examples of ``examples/torch`` on the card through their ``main``, each
    printing its landmarks, ``batched_walk`` and ``bitmatmul`` launched;
 8. calibrates the cost model on the card (quick grid, into a file under
@@ -2536,8 +2544,14 @@ def mesh_phase(dev, indexes, queries, answers):
 # -- the dry-run accounting (phase 7n) ------------------------------------------
 DRYRUN_CELLS = [("olmo-1b", shape, "single") for shape in
                 ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + \
+    [(arch, "long_500k", "single") for arch in
+     ("gemma3-12b", "gemma3-1b", "mamba2-370m", "jamba-1.5-large-398b")] + \
     [("llama3-405b", "train_4k", "multi")]
 DRYRUN_PEAK_REL = 0.20      # predicted peak (arguments + temp) against the card's
+# gemma3-12b's long_500k all-gathered 37.7 GB a step per device while each
+# rank gathered its whole cache (32.2 GB of it global layers'); with the
+# cache read where it lies, at most this is left
+DRYRUN_LONG_GATHER_BYTES = 5.5e9
 
 
 def cell_bound_ms(stats) -> dict:
@@ -2563,9 +2577,13 @@ def dryrun_phase(dev):
     predicted peak (arguments + temp) is within DRYRUN_PEAK_REL
     of ``max_memory_allocated`` over two real steps; the bound beside the
     measured ms a step.  (b) ``run_cell`` on OLMo-1B's four shapes on the
-    single mesh (256 fake ranks) and llama3-405b's train_4k on the multi
-    mesh (512): status ``ok`` or the skip ``cell_skip_reason`` gives,
-    per-device memory, FLOPs, collective bytes and bound.  (c) ``perf``'s
+    single mesh (256 fake ranks), the four ``long_500k`` cells (gemma3-12b,
+    gemma3-1b, mamba2-370m, jamba-1.5-large: batch 1, the cache's sequence
+    over ("data", "model"); gemma3-12b's all-gather at most
+    DRYRUN_LONG_GATHER_BYTES a device) and llama3-405b's train_4k on the
+    multi mesh (512): status ``ok`` or the skip ``cell_skip_reason``
+    gives, per-device memory, FLOPs, collective bytes by kind (and the
+    largest single all-gather) and bound.  (c) ``perf``'s
     ``lowmem`` on OLMo-1B train_4k single: its temp below ``base``'s (the
     ``base`` record is (b)'s cell).  Returns the results and the path's
     launch counts (none: nothing here launches a kernel)."""
@@ -2669,12 +2687,22 @@ def dryrun_phase(dev):
                     rec.update(cell_bound_ms(rec["hlo"]))
                     rec["fits_80gb"] = (rec["memory"]["argument_size_in_bytes"]
                                         + rec["memory"]["temp_size_in_bytes"]) < 80e9
+                    print(f"dryrun {arch} {shape} {mesh_name}: dot FLOPs "
+                          f"{rec['hlo']['dot_flops']:.4e}, traffic "
+                          f"{rec['hlo']['traffic_bytes']:.4e} B, collectives "
+                          f"{rec['collectives']} B (largest all-gather "
+                          f"{rec['hlo']['largest_collective']['all-gather']:.4e}), temp "
+                          f"{rec['memory']['temp_size_in_bytes']:.4e} B, bound "
+                          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
                 cells[f"{arch}/{shape}/{mesh_name}"] = rec
             if mesh_name == "single":
                 # (c) perf's lowmem against base (the single-mesh train cell)
                 t = time.perf_counter()
                 lowmem = PF.run_variant("olmo-1b", "train_4k", mesh, "lowmem")
                 lowmem["seconds"] = time.perf_counter() - t
+    long12 = cells["gemma3-12b/long_500k/single"]["collectives"]["all-gather"]
+    check(long12 <= DRYRUN_LONG_GATHER_BYTES,
+          f"gemma3-12b long_500k all-gathers {long12} B a device (> {DRYRUN_LONG_GATHER_BYTES})")
     base_rec = cells["olmo-1b/train_4k/single"]
     check(lowmem["memory"]["temp_size_in_bytes"] < base_rec["memory"]["temp_size_in_bytes"],
           f"lowmem temp {lowmem['memory']} >= base {base_rec['memory']}")
@@ -2682,10 +2710,169 @@ def dryrun_phase(dev):
     out["perf"] = {"base": {"memory": base_rec["memory"], "hlo": base_rec["hlo"]},
                    "lowmem": lowmem}
     out["tolerances"] = {"argument_bytes": 0, "flops_no_remat": 0, "flops_remat": 0,
-                         "peak_rel": DRYRUN_PEAK_REL}
+                         "peak_rel": DRYRUN_PEAK_REL,
+                         "gemma3_12b_long_all_gather_bytes": DRYRUN_LONG_GATHER_BYTES}
     out["seconds"] = time.perf_counter() - t_phase
     counts = ops.launch_counts()
     return out, counts
+
+
+# -- the batch-1 long-context decode (phase 7p) -----------------------------------
+LONG_STEPS = 8          # decode steps at the last positions of the cache
+LONG_CHUNKS = 16        # runs of every cache the split decode reads and merges
+LONG_FP32_REL = 1e-5    # split against whole-cache logits in float32: max |diff|
+#                         over max |logit| (sums reordered)
+LONG_BF16_REL = 5e-2    # in bf16 (the LM tests' bound), each attention call's split
+#                         output against the whole cache's on the same inputs: max
+#                         |diff| over max |output|.  Free-running bf16 logits are
+#                         reported beside the bf16 decode's own distance from float32
+
+
+def long_decode_phase(dev):
+    """gemma3-1b at full width (26 layers, random weights from SEED) over a
+    batch-1 cache of long_500k's 524,288 positions, every K/V (the 4
+    global layers' 2.42 GB in bf16, the 22 local rings of 1,024) filled
+    from a seeded generator on the card (no prefill).  LONG_STEPS decode
+    steps at the last positions with the whole-cache ``attn_decode``, then
+    the same steps (the written slots restored) with every cache read as
+    LONG_CHUNKS contiguous runs through ``partial_decode_attn`` and merged
+    by ``merge_partials`` (``attn_decode_chunked``: what 16 ranks of a
+    sequence-split cache compute, on one card).  Float32: the two decodes'
+    logits within LONG_FP32_REL.  Bf16: every attention call of the steps
+    computed both ways on the same inputs (the whole cache's output carried
+    on) within LONG_BF16_REL; the free-running logits' distance printed
+    beside each decode's distance from the float32 one (a bf16 decode
+    through 26 random layers amplifies any one rounding: that distance is
+    the noise floor).  In bf16: ms a step (median of the synchronised
+    steps) of both against the byte bound (weights and every cache read
+    once), peak memory, and one profiled whole-cache step's idle share.
+    Returns the results and the path's launch counts (none: no kernel of
+    the port is on this path)."""
+    import functools
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shapes as SH
+    from repro_torch.models import common as C
+    from repro_torch.models import lm as TL
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    cfg = get_config("gemma3-1b")
+    positions = SH.SHAPES["long_500k"].seq_len
+    check(positions == 524_288 and SH.SHAPES["long_500k"].global_batch == 1,
+          f"long_500k is {SH.SHAPES['long_500k']}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params32 = TL.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (LONG_STEPS,), generator=gen, device=dev)
+    steps = list(range(positions - LONG_STEPS, positions))
+    whole_attn = C.attn_decode
+    split_attn = functools.partial(C.attn_decode_chunked, n_chunks=LONG_CHUNKS)
+    calls = []
+
+    def both_attn(*args, **kw):
+        # the step's slot is written twice with the same row
+        want, cache = whole_attn(*args, **kw)
+        calls.append(rel_err(split_attn(*args, **kw)[0], want))
+        return want, cache
+
+    out = {"positions": positions, "steps": steps, "chunks": LONG_CHUNKS,
+           "tolerances": {"float32_logits": LONG_FP32_REL, "bfloat16_attention": LONG_BF16_REL}}
+    logits32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        params = params32 if dtype == torch.float32 else TL.cast_params(cfg, params32, dtype, dev)
+        if dtype != torch.float32:
+            del params32
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cache = TL.init_cache(cfg, 1, positions, dtype=dtype, device=dev)
+        fill = torch.Generator(device=dev).manual_seed(SEED + 1)
+        for lc in cache:
+            for t in lc.values():
+                t.normal_(generator=fill)
+        kinds = [s.mixer for s in cfg.layer_specs()]
+        check("attn" in kinds and all(
+            lc["k"].shape[1] == (positions if k == "attn" else cfg.window)
+            for lc, k in zip(cache, kinds)), f"gemma3-1b caches {[lc['k'].shape for lc in cache]}")
+        # what the steps write: the global caches' last positions, the rings whole
+        saved = [{n: (t[:, -LONG_STEPS:] if k == "attn" else t).clone() for n, t in lc.items()}
+                 for lc, k in zip(cache, kinds)]
+
+        def restore():
+            for lc, sv, k in zip(cache, saved, kinds):
+                for n, t in lc.items():
+                    (t[:, -LONG_STEPS:] if k == "attn" else t).copy_(sv[n])
+
+        def step(i, pos):
+            return TL.decode_step(cfg, params, toks[i:i + 1], pos, cache, dtype=dtype)[0]
+
+        def run(attn):
+            C.attn_decode = attn
+            try:
+                logits, seconds = [], []
+                for i, pos in enumerate(steps):
+                    torch.cuda.synchronize(dev)
+                    t = time.perf_counter()
+                    lg = step(i, pos)
+                    torch.cuda.synchronize(dev)
+                    seconds.append(time.perf_counter() - t)
+                    logits.append(lg[0, :cfg.vocab].float())
+            finally:
+                C.attn_decode = whole_attn
+            restore()
+            return torch.stack(logits), seconds
+
+        whole, whole_s = run(whole_attn)
+        split, split_s = run(split_attn)
+        check(bool(torch.isfinite(whole).all() and torch.isfinite(split).all()),
+              f"gemma3-1b long decode {name}: non-finite logits")
+        rel = rel_err(split, whole)
+        res = {"split_vs_whole_logits_rel": rel,
+               "argmax_agreement": float((split.argmax(-1) == whole.argmax(-1)).float().mean())}
+        if dtype == torch.float32:
+            check(rel <= LONG_FP32_REL, f"gemma3-1b long decode float32: split != whole cache "
+                                        f"(rel {rel})")
+            logits32 = whole
+        else:
+            calls.clear()
+            run(both_attn)
+            worst = max(calls)
+            check(len(calls) == LONG_STEPS * len(kinds) and worst <= LONG_BF16_REL,
+                  f"gemma3-1b long decode bf16: split attention != whole cache (rel {worst} "
+                  f"over {len(calls)} calls)")
+            cache_bytes = sum(t.numel() * t.element_size() for lc in cache for t in lc.values())
+            wbytes = weight_bytes(params)
+            ms = statistics.median(whole_s) * 1e3
+            res.update({
+                "attention_calls": len(calls), "attention_split_vs_whole_rel_max": worst,
+                "attention_split_vs_whole_rel_median": statistics.median(calls),
+                "whole_vs_float32_logits_rel": rel_err(whole, logits32),
+                "split_vs_float32_logits_rel": rel_err(split, logits32),
+                "ms_per_step": ms, "ms_all": [x * 1e3 for x in whole_s],
+                "split_ms_per_step": statistics.median(split_s) * 1e3,
+                "split_ms_all": [x * 1e3 for x in split_s],
+                "weight_bytes": wbytes, "cache_bytes": cache_bytes,
+                "global_cache_bytes": sum(t.numel() * t.element_size()
+                                          for lc, k in zip(cache, kinds) if k == "attn"
+                                          for t in lc.values()),
+                "bound_ms": (wbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                "profile": profile_calls(lambda i: step(0, steps[0]), 1, ms)})
+            restore()
+            print(f"long_decode gemma3-1b bf16 over {positions} positions: {ms:.4f} ms a step "
+                  f"(split into {LONG_CHUNKS}: {res['split_ms_per_step']:.4f}) against a "
+                  f"{res['bound_ms']:.4f} ms byte bound; peak "
+                  f"{res['max_memory_allocated_bytes'] / 1e9:.3f} GB; idle "
+                  f"{(res['profile'] or {}).get('idle_share')}; attention split vs whole "
+                  f"{worst:.3e}; logits split vs whole {rel:.4f}, whole vs float32 "
+                  f"{res['whole_vs_float32_logits_rel']:.4f}; {smi()}", flush=True)
+        out[name] = res
+        del cache, saved, params
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, ops.launch_counts()
 
 
 # -- the examples (phase 7o) -----------------------------------------------------
@@ -3947,6 +4134,12 @@ def main() -> int:
     dryrun_res, dryrun_counts = dryrun_phase(dev)
     emit({"phase": "dryrun", "card": card, **dryrun_res, "launch_counts": dryrun_counts})
 
+    # -- 7p. the batch-1 long-context decode: gemma3-1b at full width over
+    # long_500k's 524,288 positions, the whole-cache decode against the
+    # cache read in 16 runs and merged, float32 and bf16
+    long_res, long_counts = long_decode_phase(dev)
+    emit({"phase": "long_decode", "card": card, **long_res, "launch_counts": long_counts})
+
     # -- 7o. the seven examples of examples/torch on the card, landmarks checked
     examples_res, examples_counts = examples_phase(dev)
     emit({"phase": "examples", "card": card, **examples_res, "launch_counts": examples_counts})
@@ -4190,7 +4383,8 @@ def main() -> int:
                 "serving_tier": serving_counts.get(k, 0), "sharded": sharded_counts.get(k, 0),
                 "lm_serving": lm_counts.get(k, 0), "lm_families": fam_counts.get(k, 0),
                 "train": train_counts.get(k, 0), "mesh": mesh_counts.get(k, 0),
-                "dryrun": dryrun_counts.get(k, 0), "examples": examples_counts.get(k, 0)}
+                "dryrun": dryrun_counts.get(k, 0), "long_decode": long_counts.get(k, 0),
+                "examples": examples_counts.get(k, 0)}
 
     def by_shape(rows):
         return {name: {key: r[key] for key in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
@@ -4212,6 +4406,7 @@ def main() -> int:
                               "train": train_counts.get("batched_walk", 0),
                               "mesh": mesh_counts.get("batched_walk", 0),
                               "dryrun": dryrun_counts.get("batched_walk", 0),
+                              "long_decode": long_counts.get("batched_walk", 0),
                               "examples": examples_counts.get("batched_walk", 0)},
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound_ms,
          "bound_by": "bytes" if walk_bytes_ms >= walk_ops_ms else "operations",
@@ -4231,6 +4426,7 @@ def main() -> int:
                               "train": train_counts.get("bitmatmul", 0),
                               "mesh": mesh_counts.get("bitmatmul", 0),
                               "dryrun": dryrun_counts.get("bitmatmul", 0),
+                              "long_decode": long_counts.get("bitmatmul", 0),
                               "examples": examples_counts.get("bitmatmul", 0)},
          "ms": bm["ms"], "plain_ms": bm["plain_ms"], "bound_ms": bm["bound_ms"],
          "bound_by": bm["bound_by"], "library_ms": bm["library_ms"]},
@@ -4266,6 +4462,7 @@ def main() -> int:
                     ("examples", examples_counts)):
         check(n.get("batched_walk", 0) > 0, f"batched_walk was not launched on the {path} path")
     check(not any(dryrun_counts.values()), f"the dry run launched a kernel: {dryrun_counts}")
+    check(not any(long_counts.values()), f"the long decode launched a kernel: {long_counts}")
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

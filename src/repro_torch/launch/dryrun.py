@@ -283,7 +283,9 @@ def _extrapolated(runs, n_blocks: int, nm: int):
         dot_flops=at(lambda st, _: st.dot_flops),
         traffic_bytes=at(lambda st, _: st.traffic_bytes),
         collective_bytes=at(lambda st, _: st.collective_bytes),
-        per_collective={k: at(lambda st, _, k=k: st.per_collective[k]) for k in COLLECTIVES})
+        per_collective={k: at(lambda st, _, k=k: st.per_collective[k]) for k in COLLECTIVES},
+        largest_collective={k: max(st.largest_collective[k] for st, _ in runs.values())
+                            for k in COLLECTIVES})
     memory = MemoryAnalysis(
         argument_size_in_bytes=int(at(lambda _, m: m.argument_size_in_bytes)),
         output_size_in_bytes=int(at(lambda _, m: m.output_size_in_bytes)),

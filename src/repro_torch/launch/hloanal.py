@@ -28,6 +28,9 @@ fake mode) are not counted.
 * collective bytes: the result bytes of each collective
   (``_c10d_functional`` or ``c10d``) under the reference's five kinds;
   ``collective-permute`` has no eager counterpart and stays 0;
+  ``largest_collective``: the result bytes of the largest single one of
+  each kind (the port's addition: a gathered copy of a whole cache or
+  weight shows there);
 * peak bytes (:attr:`StepCounter.peak_bytes`): the most bytes held at once
   by storages that ops under the counter allocated, freed when their
   storage dies; :attr:`StepCounter.read` holds the storages that some
@@ -92,6 +95,7 @@ class HloStats:
     per_collective: Dict[str, float] = dataclasses.field(default_factory=dict)
     n_while: int = 0
     trip_counts: List[int] = dataclasses.field(default_factory=list)
+    largest_collective: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> Dict:
         return {
@@ -99,6 +103,7 @@ class HloStats:
             "traffic_bytes": self.traffic_bytes,
             "collective_bytes": self.collective_bytes,
             "per_collective": dict(self.per_collective),
+            "largest_collective": dict(self.largest_collective),
             "n_while": self.n_while,
             "trip_counts": list(self.trip_counts),
         }
@@ -134,7 +139,8 @@ class StepCounter(TorchDispatchMode):
 
     def __init__(self) -> None:
         super().__init__()
-        self.stats = HloStats(per_collective={k: 0.0 for k in COLLECTIVES})
+        self.stats = HloStats(per_collective={k: 0.0 for k in COLLECTIVES},
+                              largest_collective={k: 0.0 for k in COLLECTIVES})
         self.live_bytes = 0
         self.peak_bytes = 0
         self.read: set = set()        # storages some counted op took as input
@@ -193,6 +199,7 @@ class StepCounter(TorchDispatchMode):
             b = _nbytes(outs)
             st.per_collective[kind] += b
             st.collective_bytes += b
+            st.largest_collective[kind] = max(st.largest_collective[kind], b)
             group = ([a for a in args if isinstance(a, str)] or [None])[-1]
             self.by_group[(kind, group)] = self.by_group.get((kind, group), 0.0) + b
         if not func.is_view and name not in _NO_BYTES:

@@ -24,7 +24,10 @@ Attention serves four duties from one implementation:
   * prefill       — the same, returning the prompt's K/V;
   * decode        — one new token against a cache, written in place; a
     sliding-window layer whose cache is no longer than its window keeps it
-    as a ring buffer;
+    as a ring buffer.  The same step over a cache split into runs of
+    positions is :func:`partial_decode_attn` on each run, merged by
+    :func:`merge_partials` (what each rank of a sequence-split cache
+    computes; :func:`attn_decode_chunked` drives it on one device);
   * cross         — the encoder-decoder's decoder queries against the
     encoder's K/V (no RoPE, no mask), computed once per request.
 
@@ -57,6 +60,7 @@ __all__ = [
     "rmsnorm",
     "nonparam_ln",
     "norm_apply",
+    "norm_local",
     "rope",
     "rope_angles",
     "apply_rope",
@@ -69,6 +73,10 @@ __all__ = [
     "attn_forward",
     "attn_prefill",
     "attn_decode",
+    "decode_mask",
+    "partial_decode_attn",
+    "merge_partials",
+    "attn_decode_chunked",
     "cross_attn_forward",
     "cross_kv",
     "cross_attn_decode",
@@ -217,11 +225,18 @@ def _split_heads(t: torch.Tensor, b: int, hd: int) -> torch.Tensor:
     return t.reshape(b, t.shape[1], -1, hd)
 
 
+def _dot(p, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for a weight whose rows run over d_model; in a region over
+    split features (``p.fsplit``, the batch-1 decode layout) the local
+    product is summed over the ranks that split them."""
+    return TP.feature_sum(x @ w.to(x.dtype), getattr(p, "fsplit", None))
+
+
 def _kv_proj(p, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w (a K or V projection); a tensor-parallel rank that holds a
     column slice of w gathers the whole projection (``p.kv_gather``, see
     :func:`_attn_share`)."""
-    out = x @ w.to(x.dtype)
+    out = _dot(p, x, w)
     ax = getattr(p, "kv_gather", None)
     return out if ax is None else TP.all_gather(out, ax)
 
@@ -242,7 +257,7 @@ def _project_qkv(cfg: ModelConfig, p: Attn, x: torch.Tensor, rot: Optional[Rot],
     """Q from ``x``, K/V from ``kv_in`` (default ``x``)."""
     b, hd, dt = x.shape[0], cfg.hd, x.dtype
     kv_in = x if kv_in is None else kv_in
-    q = _split_heads(x @ p.wq.to(dt), b, hd)
+    q = _split_heads(_dot(p, x, p.wq), b, hd)
     k, v = (_split_heads(_kv_proj(p, kv_in, w), b, hd) for w in (p.wk, p.wv))
     if cfg.qk_norm and p.q_scale is not None:
         q = rmsnorm(q, p.q_scale)
@@ -337,24 +352,95 @@ def attn_decode(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, tor
     window (a ring buffer: K is rotated before it is cached, so the order of
     the slots does not matter).  ``rot``: the angles of ``pos``, computed
     here when not given."""
+    q, k, v, s_max = _decode_write(cfg, p, x, cache, pos, kind, rot)
+    mask = decode_mask(cfg, kind, pos, s_max, torch.arange(s_max, device=x.device))
+    out = _sdpa(q, _pick(p, k), _pick(p, v), mask.reshape(1, s_max))
+    return out @ p.wo.to(x.dtype), cache
+
+
+def _decode_write(cfg: ModelConfig, p: Attn, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  pos: int, kind: str, rot: Optional[Rot]):
+    """The step's queries, its K/V row written into ``cache`` at its slot:
+    (q, k, v, S_max)."""
     if rot is None:
         rot = rope_angles(torch.full((1, 1), pos, device=x.device), cfg.hd, cfg.rope_theta)
     q, k_new, v_new = _project_qkv(cfg, p, x, rot)
     k, v = cache["k"], cache["v"]
     s_max = k.shape[1]
-    ring = _ring(cfg, kind, s_max)
     slot = _slot(cfg, kind, pos, s_max)
     k[:, slot] = k_new[:, 0].to(k.dtype)
     v[:, slot] = v_new[:, 0].to(v.dtype)
-    kj = torch.arange(s_max, device=x.device)
-    if ring:
+    return q, k, v, s_max
+
+
+def decode_mask(cfg: ModelConfig, kind: str, pos: int, s_max: int,
+                kj: torch.Tensor) -> torch.Tensor:
+    """Which of the cache slots ``kj`` (of ``S_max``) a decode step at
+    ``pos`` attends: causal for a global layer; the window for a local
+    one; the slots written so far for a ring buffer."""
+    if _ring(cfg, kind, s_max):
         # slots [0, min(pos+1, S_max)) hold the last `window` tokens
-        mask = kj < min(pos + 1, s_max)
-    elif kind == "local" and cfg.window > 0:
-        mask = (kj <= pos) & (kj > pos - cfg.window)
+        return kj < min(pos + 1, s_max)
+    if kind == "local" and cfg.window > 0:
+        return (kj <= pos) & (kj > pos - cfg.window)
+    return kj <= pos
+
+
+def partial_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A decode step's attention over one run of the cache, unnormalised:
+    q (B, 1, H, hd) against k/v (B, S, KV, hd) at the slots where
+    ``mask`` (S,) holds.  Float32 ``m`` (B, H), the largest score
+    (``NEG_INF`` where no slot is valid), ``l`` (B, H) = sum exp(s - m) and
+    ``o`` (B, H, hd) = sum exp(s - m) v, every masked slot's term 0.  The
+    scores are cast to float32 before the fill, and exp(s - m) to v's
+    dtype for the product with v, as :func:`_sdpa` does."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) / math.sqrt(hd)
+    s = s.float().masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None]).masked_fill(~mask, 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", e.to(v.dtype), v).float()
+    return m.reshape(b, h), e.sum(dim=-1).reshape(b, h), o.reshape(b, h, hd)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   groups: Optional[Tuple] = None) -> torch.Tensor:
+    """The attention (B, H, hd), float32, of the runs whose
+    :func:`partial_decode_attn` gave (m, l, o): M = max m, L = sum l
+    exp(m - M), O = sum o exp(m - M), then O / L.  Without ``groups`` the
+    partials are stacked on a leading dim and merged here; with them each
+    rank passes its own, merged over the process groups ``groups``
+    (:func:`~.tp.dim_groups`) of the ranks that hold the other runs."""
+    if groups is None:
+        mx = m.amax(dim=0)
+        w = torch.exp(m - mx)
+        big_l, big_o = (l * w).sum(dim=0), (o * w[..., None]).sum(dim=0)
     else:
-        mask = kj <= pos
-    out = _sdpa(q, _pick(p, k), _pick(p, v), mask.reshape(1, s_max))
+        mx = TP.max_over(m, groups)
+        w = torch.exp(m - mx)
+        big_l = TP.sum_over(l * w, groups, partial_out=False)
+        big_o = TP.sum_over(o * w[..., None], groups, partial_out=False)
+    return big_o / big_l[..., None]
+
+
+def attn_decode_chunked(cfg: ModelConfig, p: Attn, x: torch.Tensor,
+                        cache: Dict[str, torch.Tensor], pos: int, kind: str = "causal",
+                        rot: Optional[Rot] = None,
+                        n_chunks: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`attn_decode` with the cache read as ``n_chunks`` contiguous
+    runs of positions (at most S_max), each through
+    :func:`partial_decode_attn`, merged by :func:`merge_partials`: the
+    sequence-split decode of a mesh, on one device."""
+    q, k, v, s_max = _decode_write(cfg, p, x, cache, pos, kind, rot)
+    mask = decode_mask(cfg, kind, pos, s_max, torch.arange(s_max, device=x.device))
+    n = min(n_chunks, s_max)
+    bounds = [(i * s_max // n, (i + 1) * s_max // n) for i in range(n)]
+    parts = [partial_decode_attn(q, k[:, a:b], v[:, a:b], mask[a:b]) for a, b in bounds]
+    out = merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    out = out.reshape(x.shape[0], 1, -1).to(x.dtype)
     return out @ p.wo.to(x.dtype), cache
 
 
@@ -414,10 +500,10 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, device=None) -> MLP:
 def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if p.wg is not None:    # SwiGLU; silu as x * sigmoid(x), as jax.nn.silu
-        g = x @ p.wg.to(dt)
-        h = g * torch.sigmoid(g) * (x @ p.wi.to(dt))
+        g = _dot(p, x, p.wg)
+        h = g * torch.sigmoid(g) * _dot(p, x, p.wi)
     else:                   # GELU 2-matrix; jax.nn.gelu's default tanh form
-        h = F.gelu(x @ p.wi.to(dt), approximate="tanh")
+        h = F.gelu(_dot(p, x, p.wi), approximate="tanh")
     return h @ p.wo.to(dt)
 
 
@@ -428,6 +514,8 @@ def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
 # columns.
 # ---------------------------------------------------------------------------
 _ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "q_scale": None, "k_scale": None}
+# the dim of each weight that runs over d_model (split where x's features are)
+_ATTN_MODEL_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "q_scale": None, "k_scale": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,6 +540,10 @@ class _AttnShare:
         """K/V (B, S, KV, hd): rows as x's, heads split iff they split."""
         return TP.rows(x, self.ax, Shard(2) if self.kv_split else None)
 
+    @property
+    def model_dims(self) -> Tuple[Optional[int], ...]:
+        return tuple(_ATTN_MODEL_DIMS[n] for n in self.names)
+
     def keep(self, names: Tuple[str, ...]) -> "_AttnShare":
         """The share of the weights ``names`` alone (a step that reads no
         others)."""
@@ -465,7 +557,8 @@ class _AttnShare:
     def local(self, ws) -> SimpleNamespace:
         return SimpleNamespace(**{**dict.fromkeys(_ATTN_DIMS), **dict(zip(self.names, ws)),
                                   "kv_pick": self.pick,
-                                  "kv_gather": self.ax if self.kv_gather else None})
+                                  "kv_gather": self.ax if self.kv_gather else None,
+                                  "fsplit": self.ax if self.ax.features else None})
 
 
 def _attn_share(cfg: ModelConfig, p: Attn, x: DTensor) -> _AttnShare:
@@ -495,6 +588,27 @@ def _norm_weights(cfg: ModelConfig, scale: Optional[torch.Tensor]):
     return ([scale], [None]) if cfg.norm != "nonparam_ln" else ([], [])
 
 
+def _norm_model_dims(cfg: ModelConfig):
+    return [0] if cfg.norm != "nonparam_ln" else []
+
+
+def norm_local(cfg: ModelConfig, x: torch.Tensor, scale: Optional[torch.Tensor],
+               ax: TP.Axes) -> torch.Tensor:
+    """:func:`norm_apply` of a region's local x; where its features are
+    split (``ax.features``) the statistics are summed over their ranks
+    (float32, the mean first, then the centred squares for a LayerNorm)."""
+    if not ax.features:
+        return norm_apply(cfg, x, scale)
+    xf = x.float()
+    d = x.shape[-1] * ax.fn
+    if cfg.norm == "nonparam_ln":
+        xf = xf - TP.feature_sum(xf.sum(-1, keepdim=True), ax) / d
+        var = TP.feature_sum(xf.square().sum(-1, keepdim=True), ax) / d
+        return (xf * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    ms = TP.feature_sum(xf.square().sum(-1, keepdim=True), ax) / d
+    return (xf * torch.rsqrt(ms + 1e-6) * (1.0 + scale.float())).to(x.dtype)
+
+
 def attn_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn, x: torch.Tensor,
                kind: str, q_chunk: int = 0, rot: Optional[Rot] = None):
     """``attn_prefill`` of the normed x: (increment, {"k", "v"})."""
@@ -518,44 +632,90 @@ def attn_decode_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn,
                       x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
                       kind: str = "causal", rot: Optional[Rot] = None) -> torch.Tensor:
     """``attn_decode`` of the normed x: the increment; ``cache`` is written
-    in place."""
+    in place.  On DTensors each rank reads its shard of the cache where it
+    lies: its rows and heads (:func:`_decode_heads`) or, where the cache's
+    sequence is split, its run of positions (:func:`_decode_runs`); a
+    cache placed otherwise raises."""
     if not isinstance(x, DTensor):
         return attn_decode(cfg, p, norm_apply(cfg, x, scale), cache, pos, kind, rot)[0]
     sh = _attn_share(cfg, p, x)
+    placed = tuple(cache["k"].placements), tuple(cache["v"].placements)
+    if placed == (sh.kv(x),) * 2:
+        return _decode_heads(cfg, scale, p, x, cache, pos, kind, rot, sh)
+    seq = tuple(i for i, q in enumerate(placed[0]) if q.is_shard(1))
+    want = tuple(Shard(1) if i in seq else q for i, q in enumerate(TP.rows(x, sh.ax)))
+    if not seq or placed != (want,) * 2:
+        raise ValueError(f"decode cache placed {placed[0]}, {placed[1]}: neither as the "
+                         f"step's heads ({sh.kv(x)}) nor split over its sequence ({want})")
+    return _decode_runs(cfg, scale, p, x, cache, pos, kind, rot, sh, seq)
+
+
+def _decode_heads(cfg: ModelConfig, scale, p: Attn, x: DTensor, cache, pos: int, kind: str,
+                  rot: Optional[Rot], sh: _AttnShare) -> DTensor:
+    """The decode region over a cache split as the step's rows and heads:
+    each rank attends its heads over every position of its rows."""
     sw, sd = _norm_weights(cfg, scale)
-    slot = _slot(cfg, kind, pos, cache["k"].shape[1])
 
     def fn(xl, *ws):
-        s = ws[0] if sw else None
+        h = norm_local(cfg, xl, ws[0] if sw else None, sh.ax)
         kl, vl = ws[-2:]
-        out = attn_decode_block(sh.cfg, s, sh.local(ws[len(sw):-2]), xl, {"k": kl, "v": vl},
-                                pos, kind, rot)
-        return out, kl[:, slot:slot + 1], vl[:, slot:slot + 1]
+        return attn_decode(sh.cfg, sh.local(ws[len(sw):-2]), h, {"k": kl, "v": vl}, pos,
+                           kind, rot)[0]
 
     kvp = sh.kv(x)
-    out, k_new, v_new = TP.region(
-        fn, x, sw + sh.weights(p), sd + list(sh.dims), split=sh.split,
-        extra=(cache["k"], cache["v"]), extra_placements=(kvp, kvp),
-        outs=(TP.partial(x, sh.ax, sh.split), kvp, kvp))
-    if tuple(cache["k"].placements) != kvp:     # the region wrote a gathered copy
-        _write_slot(cache["k"], slot, k_new)
-        _write_slot(cache["v"], slot, v_new)
-    return out.redistribute(x.device_mesh, x.placements)
+    return TP.region(fn, x, sw + sh.weights(p), sd + list(sh.dims), split=sh.split,
+                     model_dims=_norm_model_dims(cfg) + list(sh.model_dims),
+                     extra=(cache["k"], cache["v"]), extra_placements=(kvp, kvp))
 
 
-def _write_slot(cache: DTensor, slot: int, new: DTensor) -> None:
-    """``cache[:, slot] = new[:, 0]`` on the rank whose shard of a cache
-    split over its sequence holds the slot (``new``'s rows and heads are
-    the cache's local ones)."""
+def _decode_runs(cfg: ModelConfig, scale, p: Attn, x: DTensor, cache, pos: int, kind: str,
+                 rot: Optional[Rot], sh: _AttnShare, seq: Tuple[int, ...]) -> DTensor:
+    """The decode region over a cache whose sequence is split over the
+    mesh dims ``seq`` (over ("data", "model") jointly for a batch-1 long
+    context, over "model" where the K/V heads do not divide it): each rank
+    (a) writes the new K/V row if its run holds the slot, (b) attends every
+    head's query (gathered over "tp", a few KB) over its own positions
+    (:func:`partial_decode_attn`), (c) merges the partials over ``seq``
+    (:func:`merge_partials`) and (d) applies ``wo`` on its heads."""
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    shape, off = compute_local_shape_and_global_offset(cache.shape, cache.device_mesh,
-                                                       cache.placements)
-    local, row = cache.to_local(), new.to_local()
-    if (row.shape[0], *row.shape[2:]) != (local.shape[0], *local.shape[2:]):
-        raise ValueError(f"cache shard {tuple(local.shape)} and new rows {tuple(row.shape)}")
-    if off[1] <= slot < off[1] + shape[1]:
-        local[:, slot - off[1]] = row[:, 0].to(local.dtype)
+    sw, sd = _norm_weights(cfg, scale)
+    k = cache["k"]
+    s_max = k.shape[1]
+    shape, off = compute_local_shape_and_global_offset(k.shape, k.device_mesh, k.placements)
+    start, n = off[1], shape[1]
+    slot = _slot(cfg, kind, pos, s_max)
+    groups = TP.dim_groups(k.device_mesh, seq)
+    ax, hl, hd = sh.ax, sh.cfg.n_heads, cfg.hd
+
+    def fn(xl, *ws):
+        h = norm_local(cfg, xl, ws[0] if sw else None, ax)
+        kl, vl = ws[-2:]
+        local = sh.local(ws[len(sw):-2])
+        r = rot if rot is not None else rope_angles(
+            torch.full((1, 1), pos, device=xl.device), hd, cfg.rope_theta)
+        q, k_new, v_new = _project_qkv(sh.cfg, local, h, r)
+        b = q.shape[0]
+        if sh.split:        # every head's query; every K/V head's new row
+            q = TP.all_gather(q.reshape(b, 1, hl * hd), ax).reshape(b, 1, -1, hd)
+        if sh.kv_split:
+            k_new, v_new = (TP.all_gather(t.reshape(b, 1, -1), ax).reshape(b, 1, -1, hd)
+                            for t in (k_new, v_new))
+        if start <= slot < start + n:
+            kl[:, slot - start] = k_new[:, 0].to(kl.dtype)
+            vl[:, slot - start] = v_new[:, 0].to(vl.dtype)
+        mask = decode_mask(cfg, kind, pos, s_max, torch.arange(start, start + n,
+                                                              device=xl.device))
+        out = merge_partials(*partial_decode_attn(q, kl, vl, mask), groups)
+        if sh.split:
+            out = out[:, ax.rank * hl:(ax.rank + 1) * hl]
+        out = out.reshape(b, 1, hl * hd).to(xl.dtype)
+        return out @ local.wo.to(xl.dtype)
+
+    return TP.region(fn, x, sw + sh.weights(p), sd + list(sh.dims), split=sh.split,
+                     model_dims=_norm_model_dims(cfg) + list(sh.model_dims),
+                     extra=(cache["k"], cache["v"]),
+                     extra_placements=(k.placements, cache["v"].placements))
 
 
 def cross_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: Attn, x: torch.Tensor,
@@ -621,12 +781,14 @@ def mlp_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: MLP,
     names = [n for n in ("wi", "wg", "wo") if getattr(p, n) is not None]
 
     def fn(xl, *ws):
-        s = ws[0] if sw else None
-        local = SimpleNamespace(**{"wg": None, **dict(zip(names, ws[len(sw):]))})
-        return mlp_block(cfg, s, local, xl)
+        h = norm_local(cfg, xl, ws[0] if sw else None, ax)
+        local = SimpleNamespace(**{"wg": None, **dict(zip(names, ws[len(sw):])),
+                                   "fsplit": ax})
+        return mlp_forward(local, h)
 
     return TP.region(fn, x, sw + [getattr(p, n) for n in names],
-                     sd + [0 if n == "wo" else 1 for n in names], split=split)
+                     sd + [0 if n == "wo" else 1 for n in names], split=split,
+                     model_dims=_norm_model_dims(cfg) + [1 if n == "wo" else 0 for n in names])
 
 
 def logits_block(cfg: ModelConfig, scale: Optional[torch.Tensor], w: torch.Tensor,
@@ -644,16 +806,19 @@ def logits_block(cfg: ModelConfig, scale: Optional[torch.Tensor], w: torch.Tenso
     sw, sd = _norm_weights(cfg, scale)
 
     def fn(xl, *ws):
-        h = norm_apply(cfg, xl, ws[0] if sw else None)
-        return _logits(cfg, h, ws[-1].T if tied else ws[-1], v0)
+        h = norm_local(cfg, xl, ws[0] if sw else None, ax)
+        return _logits(cfg, h, ws[-1].T if tied else ws[-1], v0, ax)
 
     out = TP.rows(x, ax, Shard(x.ndim - 1) if split else None)
-    return TP.region(fn, x, sw + [w], sd + [0 if tied else 1], split=split, outs=out)
+    return TP.region(fn, x, sw + [w], sd + [0 if tied else 1], split=split, outs=out,
+                     model_dims=_norm_model_dims(cfg) + [1 if tied else 0])
 
 
-def _logits(cfg: ModelConfig, h: torch.Tensor, w: torch.Tensor, v0: int) -> torch.Tensor:
-    """Logits of vocabulary columns [v0, v0 + w's columns)."""
-    logits = (h @ w.to(h.dtype)).float()
+def _logits(cfg: ModelConfig, h: torch.Tensor, w: torch.Tensor, v0: int,
+            ax: Optional[TP.Axes] = None) -> torch.Tensor:
+    """Logits of vocabulary columns [v0, v0 + w's columns); ``ax``: a
+    region's axes, whose split features the product is summed over."""
+    logits = TP.feature_sum(h @ w.to(h.dtype), ax).float()
     pad = max(cfg.vocab - v0, 0)
     if pad < logits.shape[-1]:
         logits[..., pad:] = NEG_INF

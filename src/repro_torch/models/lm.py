@@ -32,6 +32,8 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.device import resolve_device
@@ -164,6 +166,46 @@ def _embed(params: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return PS.hint(params.embed[tokens].to(dtype), "dp", None, None)
 
 
+def _decode_embed(params: LM, token: torch.Tensor, dtype) -> torch.Tensor:
+    """A decode step's residual stream (B, 1, D): its rows over the data
+    axes, or, where the batch does not split over them (a batch-1
+    long-context decode), its FEATURES, as GSPMD keeps them, so that each
+    sublayer contracts its FSDP-split weights where they lie
+    (:mod:`~repro_torch.models.tp`).  Then each rank looks the token up in
+    its own slice of the table (vocabulary rows over "tp", d_model
+    columns over the data axes) and the rows are summed over "tp": no rank
+    gathers the table."""
+    w = params.embed
+    pol = PS.policy() or {}
+    if not isinstance(token, DTensor) or any(q.is_shard(0) for q in token.placements):
+        return _embed(params, token[:, None], dtype)
+    mesh = w.device_mesh
+    names = list(mesh.mesh_dim_names)
+    dp = pol.get("dp") or ()
+    feats = [names.index(a) for a in ((dp,) if isinstance(dp, str) else dp)
+             if a in names and mesh.size(names.index(a)) > 1]
+    if not feats or w.shape[1] % math.prod(mesh.size(i) for i in feats):
+        return _embed(params, token[:, None], dtype)
+    tp = names.index(pol["tp"]) if pol.get("tp") in names else None
+    if tp is not None and (mesh.size(tp) == 1 or w.shape[0] % mesh.size(tp)):
+        tp = None
+    v0 = mesh.get_local_rank(tp) * (w.shape[0] // mesh.size(tp)) if tp is not None else 0
+
+    def fn(wl, tl):
+        idx = tl[:, None] - v0
+        hit = (idx >= 0) & (idx < wl.shape[0])
+        return wl[idx.clamp(0, wl.shape[0] - 1)].to(dtype).masked_fill(~hit[..., None], 0)
+
+    def pl(on_tp, on_feats):
+        return [on_tp if i == tp else on_feats if i in feats else Replicate()
+                for i in range(mesh.ndim)]
+
+    f = local_map(fn, out_placements=pl(Partial(), Shard(2)),
+                  in_placements=(pl(Shard(0), Shard(1)), pl(Replicate(), Replicate())),
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(w, token).redistribute(mesh, pl(Replicate(), Shard(2)))
+
+
 def _head(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     w = params.embed if cfg.tie_embeddings else params.lm_head
     logits = C.logits_block(cfg, params.final_norm.scale, w, x, cfg.tie_embeddings)
@@ -272,7 +314,7 @@ def decode_step(cfg: ModelConfig, params: LM, token: torch.Tensor, pos: int, cac
     """One step: token (B,) at position ``pos`` (an int) -> (B, V) float32
     logits for the NEXT token.  The cache is updated in place and returned."""
     pos = int(pos)
-    x = _embed(params, token[:, None], dtype)
+    x = _decode_embed(params, token, dtype)
     rot = _rot(cfg, torch.full((1, 1), pos, device=token.device))
     for layer, lc in zip(params.layers, cache):
         scale = layer.pre_norm.scale

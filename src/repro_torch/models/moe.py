@@ -81,11 +81,14 @@ def _n_groups(t: int) -> int:
 
 
 def _grouped(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
-             wg: torch.Tensor, wo: torch.Tensor, e0: int = 0) -> torch.Tensor:
+             wg: torch.Tensor, wo: torch.Tensor, e0: int = 0,
+             ax: Optional[TP.Axes] = None) -> torch.Tensor:
     """The FFN of every group of xt (G, Tg, D) -> (G, Tg, D), each group
     routed, dispatched and dropped on its own.  ``wi``/``wg``/``wo`` may
     hold a run of the experts from ``e0`` on (a tensor-parallel rank's):
-    the result is then their part of the sum."""
+    the result is then their part of the sum.  ``ax``: a region's axes,
+    whose split features (x's, the router's and ``wi``/``wg``'s rows of
+    d_model, ``wo``'s columns) each product over d_model is summed over."""
     g, tg, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     el = wi.shape[0]
@@ -93,7 +96,7 @@ def _grouped(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor, wi: torch
     dev = xt.device
 
     # router
-    logits = xt.float() @ router.float()                        # (G, Tg, E)
+    logits = TP.feature_sum(xt.float() @ router.float(), ax)    # (G, Tg, E)
     topw, topi = torch.topk(logits, k, dim=-1)                   # (G, Tg, k)
     topw = torch.softmax(topw, dim=-1).to(dt)
 
@@ -123,8 +126,8 @@ def _grouped(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor, wi: torch
     xt_pad = torch.cat([xt, xt.new_zeros(g, 1, d)], dim=1).reshape(g * (tg + 1), d)
     buf = xt_pad[rows].reshape(g, el, cap, d)                    # (G, E, C, D)
     buf = buf.transpose(0, 1).reshape(el, g * cap, d)            # (E, G*C, D)
-    h_g = torch.bmm(buf, wg.to(dt))
-    h = h_g * torch.sigmoid(h_g) * torch.bmm(buf, wi.to(dt))
+    h_g = TP.feature_sum(torch.bmm(buf, wg.to(dt)), ax)
+    h = h_g * torch.sigmoid(h_g) * TP.feature_sum(torch.bmm(buf, wi.to(dt)), ax)
     y = torch.bmm(h, wo.to(dt))                                  # (E, G*C, D)
     y = y.reshape(el, g, cap, d).transpose(0, 1).reshape(g * el * cap, d)
 
@@ -165,11 +168,11 @@ def moe_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: MoE,
     sw, sd = C._norm_weights(cfg, scale)
 
     def fn(xl, *ws):
-        h = C.norm_apply(cfg, xl, ws[0] if sw else None)
-        bl = h.shape[0]
-        out = _grouped(cfg, h.reshape(gl, bl * s // gl, d), *ws[len(sw):], e0=e0)
-        return out.reshape(bl, s, d)
+        h = C.norm_local(cfg, xl, ws[0] if sw else None, ax)
+        bl, dl = h.shape[0], h.shape[-1]
+        out = _grouped(cfg, h.reshape(gl, bl * s // gl, dl), *ws[len(sw):], e0=e0, ax=ax)
+        return out.reshape(bl, s, dl)
 
     out = TP.region(fn, xin, sw + [p.router, p.wi, p.wg, p.wo], sd + [None, 0, 0, 0],
-                    split=split)
+                    split=split, model_dims=C._norm_model_dims(cfg) + [0, 1, 1, 2])
     return out.redistribute(ax.mesh, x.placements)

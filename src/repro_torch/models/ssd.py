@@ -197,19 +197,27 @@ def ssd_decode(cfg: ModelConfig, p: SSD, x: torch.Tensor,
     proj = x[:, 0, :] @ p.in_proj.to(x.dtype)
     win = torch.cat([cache["conv"], _split_proj(di, n, proj)[1][:, None, :]], dim=1)
     cache["conv"].copy_(win[:, 1:, :])
-    return _decode_mix((di, p_, h, n), p, proj, win, cache["state"])[:, None, :], cache
+    xbc = _conv_step(win, p.conv_w, p.conv_b)
+    return _decode_mix((di, p_, h, n), p, proj, xbc, cache["state"])[:, None, :], cache
 
 
-def _decode_mix(dims, p, proj: torch.Tensor, win: torch.Tensor, st: torch.Tensor,
+def _conv_step(win: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv of the window ``win`` (B, k, C) of raw xBC
+    channels, then SiLU: (B, C).  A channel reads only its own column, so
+    any run of channels convolves alone."""
+    dt_ = win.dtype
+    return _silu(torch.einsum("bkc,kc->bc", win, w.to(dt_)) + b.to(dt_))
+
+
+def _decode_mix(dims, p, proj: torch.Tensor, xbc: torch.Tensor, st: torch.Tensor,
                 ax: Optional[TP.Axes] = None) -> torch.Tensor:
     """One recurrent step of a projection (B, [z, x, B, C, dt]) with the
-    conv window ``win`` (B, k, xBC) of its raw xBC, the float32 state
-    ``st`` (B, H, P, N) updated in place: the output (B, D)."""
+    convolved xBC ``xbc`` (B, xBC), the float32 state ``st`` (B, H, P, N)
+    updated in place: the output (B, D)."""
     di, p_, h, n = dims
     b = proj.shape[0]
     dt_ = proj.dtype
     z, _, dt = _split_proj(di, n, proj)
-    xbc = _silu(torch.einsum("bkc,kc->bc", win, p.conv_w.to(dt_)) + p.conv_b.to(dt_))
 
     xs = xbc[:, :di].reshape(b, h, p_)
     Bm = xbc[:, di:di + n].float()
@@ -234,6 +242,8 @@ def _decode_mix(dims, p, proj: torch.Tensor, win: torch.Tensor, st: torch.Tensor
 # B and C every head reads
 # ---------------------------------------------------------------------------
 _NAMES = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale", "out_proj")
+# the dim of each that runs over d_model (split where x's features are)
+_MODEL_DIMS = [0, None, None, None, None, None, None, 1]
 
 
 def _share(cfg: ModelConfig, x: DTensor):
@@ -265,16 +275,17 @@ def _local(cfg: ModelConfig, ax: TP.Axes, split: bool, ws, proj: torch.Tensor):
         return (di, p_, h, n), p, proj
     ch, hs = _rank_slices(cfg, ax)
     z, xbc, dt = _split_proj(di, n, proj)
+    conv = {} if p.conv_w is None else dict(conv_w=_xbc_channels(cfg, ax, p.conv_w),
+                                            conv_b=_xbc_channels(cfg, ax, p.conv_b))
     local = SimpleNamespace(
-        conv_w=_xbc_channels(cfg, ax, p.conv_w), conv_b=_xbc_channels(cfg, ax, p.conv_b),
         A_log=p.A_log[hs], D=p.D[hs], dt_bias=p.dt_bias[hs], norm_scale=p.norm_scale[ch],
-        out_proj=p.out_proj)
+        out_proj=p.out_proj, **conv)
     proj = torch.cat([z[..., ch], _xbc_channels(cfg, ax, xbc), dt[..., hs]], dim=-1)
     return (di // ax.n, p_, h // ax.n, n), local, proj
 
 
 def _project(h: torch.Tensor, in_proj: torch.Tensor, ax: TP.Axes, gather: bool):
-    proj = h @ in_proj.to(h.dtype)
+    proj = TP.feature_sum(h @ in_proj.to(h.dtype), ax)
     return TP.all_gather(proj, ax) if gather else proj
 
 
@@ -313,31 +324,42 @@ def ssd_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: SSD, x: torch.
 def ssd_decode_block(cfg: ModelConfig, scale: Optional[torch.Tensor], p: SSD,
                      x: torch.Tensor, cache: SSDCache) -> torch.Tensor:
     """``ssd_decode`` of the normed x: the increment; ``cache`` is updated
-    in place."""
+    in place.  On DTensors each rank convolves its own columns of the conv
+    tail (split over "tp" as the cache places them, with ``conv_w``'s) and
+    gathers the convolved xBC, of which its heads read theirs."""
     if not isinstance(x, DTensor):
         return ssd_decode(cfg, p, C.norm_apply(cfg, x, scale), cache)[0]
     ax, split, gather = _share(cfg, x)
     sw, sd = C._norm_weights(cfg, scale)
     _, di, _, _, n = _dims(cfg)
+    cd = di + 2 * n
+    cs = ax.tp is not None and cd % ax.n == 0      # the conv's columns split over "tp"
+    c0, c1 = (ax.rank * cd // ax.n, (ax.rank + 1) * cd // ax.n) if cs else (0, cd)
     statep = TP.rows(x, ax, Shard(1) if split else None)
-    if tuple(cache["state"].placements) != statep:
-        raise ValueError(f"SSD state placed {cache['state'].placements}, not {statep}")
-    convp = TP.rows(x, ax)
+    convp = TP.rows(x, ax, Shard(2) if cs else None)
+    for name, want in (("state", statep), ("conv", convp)):
+        if tuple(cache[name].placements) != want:
+            raise ValueError(f"SSD {name} placed {cache[name].placements}, not {want}")
 
     def fn(xl, *ws):
-        h = C.norm_apply(cfg, xl, ws[0] if sw else None)
+        h = C.norm_local(cfg, xl, ws[0] if sw else None, ax)
         *ws, conv, state = ws[len(sw):]
-        proj = _project(h[:, 0, :], ws[0], ax, gather)
-        win = torch.cat([conv, _split_proj(di, n, proj)[1][:, None, :]], dim=1)
+        pw = SimpleNamespace(**dict(zip(_NAMES, ws)))
+        proj = _project(h[:, 0, :], pw.in_proj, ax, gather)
+        win = torch.cat([conv, _split_proj(di, n, proj)[1][:, None, c0:c1]], dim=1)
+        conv.copy_(win[:, 1:, :])
+        xbc = _conv_step(win, pw.conv_w, pw.conv_b[c0:c1])
+        if cs:
+            xbc = TP.all_gather(xbc, ax)
+        ws = [None if name in ("conv_w", "conv_b") else w for name, w in zip(_NAMES, ws)]
         dims, local, lproj = _local(cfg, ax, split, ws, proj)
-        lwin = _xbc_channels(cfg, ax, win) if split else win
-        out = _decode_mix(dims, local, lproj, lwin, state, ax if split else None)
-        return out[:, None, :], win[:, 1:, :]
+        lxbc = _xbc_channels(cfg, ax, xbc) if split else xbc
+        return _decode_mix(dims, local, lproj, lxbc, state, ax if split else None)[:, None, :]
 
-    dims = sd + [1 if gather else None] + [None] * 6 + [0]
-    out, tail = TP.region(fn, x, sw + [getattr(p, name) for name in _NAMES], dims,
-                          split=split, extra=(cache["conv"], cache["state"]),
-                          extra_placements=(convp, statep),
-                          outs=(TP.partial(x, ax, split), convp))
-    cache["conv"].copy_(tail.redistribute(x.device_mesh, cache["conv"].placements))
+    # the conv's columns split over "tp" even where the heads are not
+    dims = sd + [1 if gather else None, 1 if cs else None] + [None] * 5 + [0 if split else None]
+    out = TP.region(fn, x, sw + [getattr(p, name) for name in _NAMES], dims,
+                    split=split or cs, model_dims=C._norm_model_dims(cfg) + _MODEL_DIMS,
+                    extra=(cache["conv"], cache["state"]), extra_placements=(convp, statep),
+                    outs=TP.partial(x, ax, split))
     return out.redistribute(x.device_mesh, x.placements)

@@ -16,6 +16,15 @@ fake process group in this process.
 * On both meshes, dot FLOPs are within 5% of ``analyze_hlo``'s; every gap
   is printed (``-s``).  On the (2, 2) mesh the four ranks together also do
   at least the one-device work.
+* whisper-small's train and prefill cells on (2, 2) are held to a second
+  reference with the port's layout: ``repro`` compiled unchanged, its
+  decoder's activations pinned to ("dp", None, None) while whisper is
+  lowered (``_dec_body``'s input and the prefill scan body's carry), as
+  ``repro.models.lm`` pins the LM's embedding.  Unhinted, GSPMD keeps the
+  decoder's rows whole on every "data" rank and runs its weightless
+  self-attention twice (ROADMAP C, note 7 on the reference): the port does
+  14.4% (train) and 12.8% (prefill) less per device there, and those two
+  cases are strict xfails, so they fail if the port ever matches.
 """
 import json
 import os
@@ -40,6 +49,8 @@ CELLS = {"train_4k": (64, 8, "train"), "prefill_32k": (64, 4, "prefill"),
 PAIRS = [(a, s) for a in ARCHS for s in CELLS]
 MESHES = {"2x2": (2, 2), "1x1": (1, 1)}
 FLOPS_REL = 0.05
+HINTED = ["train_4k", "prefill_32k"]      # whisper-small's cells with a hinted reference
+_UNHINTED = {"train_4k": "-14.4%", "prefill_32k": "-12.8%"}
 
 _REFERENCE = r"""
 import json, os, sys
@@ -48,20 +59,50 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 from repro.configs.registry import get_smoke_config
 import repro.launch.dryrun as DR, repro.launch.shapes as SH
+import repro.models.whisper as W
+from repro.models import pshard as PS
 from repro.launch.hloanal import analyze_hlo
 from repro.launch.mesh import make_mesh_compat
 DR.get_config = get_smoke_config
 SH.get_config = get_smoke_config
-cells, pairs, meshes = (json.loads(a) for a in sys.argv[1:4])
+cells, pairs, meshes, hinted = (json.loads(a) for a in sys.argv[1:5])
 SH.SHAPES = {n: SH.ShapeCell(n, s, b, k) for n, (s, b, k) in cells.items()}
+
+def account(arch, cell, mesh):
+    _, compiled = DR.lower_cell(arch, cell, mesh)
+    return {"argument": int(compiled.memory_analysis().argument_size_in_bytes),
+            "dot_flops": analyze_hlo(compiled.as_text()).dot_flops}
+
+def pin_decoder():
+    # whisper's decoder rows pinned over "dp" (as repro.models.lm pins the
+    # LM's), for this lowering only: _dec_body's input (forward) and the
+    # carry of prefill's scan body; returns the undo
+    body, scan = W._dec_body, jax.lax.scan
+    def dec_body(cfg, h, *a, **k):
+        return body(cfg, PS.hint(h, "dp", None, None), *a, **k)
+    def pinned_scan(f, init, *a, **k):
+        if getattr(f, "__qualname__", "") == "prefill.<locals>.body" and \
+                f.__module__ == W.__name__:
+            g = f
+            f = lambda h, xs: g(PS.hint(h, "dp", None, None), xs)
+        return scan(f, init, *a, **k)
+    W._dec_body, jax.lax.scan = dec_body, pinned_scan
+    def undo():
+        W._dec_body, jax.lax.scan = body, scan
+    return undo
+
 out = {}
 for name, shape in meshes.items():
     mesh = make_mesh_compat(tuple(shape), ("data", "model"))
     for arch, cell in pairs:
-        _, compiled = DR.lower_cell(arch, cell, mesh)
-        out[f"{name}/{arch}/{cell}"] = {
-            "argument": int(compiled.memory_analysis().argument_size_in_bytes),
-            "dot_flops": analyze_hlo(compiled.as_text()).dot_flops}
+        out[f"{name}/{arch}/{cell}"] = account(arch, cell, mesh)
+mesh = make_mesh_compat((2, 2), ("data", "model"))
+for cell in hinted:
+    undo = pin_decoder()
+    try:
+        out[f"hinted/whisper-small/{cell}"] = account("whisper-small", cell, mesh)
+    finally:
+        undo()
 print(json.dumps(out))
 """
 
@@ -72,7 +113,7 @@ def accounts():
     ``CellAccount`` and the reference's argument bytes and dot FLOPs."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     ref = subprocess.Popen([sys.executable, "-c", _REFERENCE, json.dumps(CELLS),
-                            json.dumps(PAIRS), json.dumps(MESHES)],
+                            json.dumps(PAIRS), json.dumps(MESHES), json.dumps(HINTED)],
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     port = {}
     with pytest.MonkeyPatch.context() as mp:
@@ -92,7 +133,9 @@ def accounts():
     out, err = ref.communicate(timeout=600)
     assert ref.returncode == 0, err[-3000:]
     want = json.loads(out.strip().splitlines()[-1])
-    return {k: (port[k], want[k]) for k in port}
+    hinted = {f"hinted/whisper-small/{c}": (port[f"2x2/whisper-small/{c}"],
+                                            want[f"hinted/whisper-small/{c}"]) for c in HINTED}
+    return {**{k: (port[k], want[k]) for k in port}, **hinted}
 
 
 def _gap(port, want) -> float:
@@ -115,9 +158,25 @@ def test_dot_flops_on_one_device(accounts, arch, cell):
     assert abs(_gap(port, want)) <= FLOPS_REL
 
 
-@pytest.mark.parametrize("arch,cell", PAIRS)
+def _unhinted(arch, cell):
+    if arch == "whisper-small" and cell in _UNHINTED:
+        return pytest.param(arch, cell, marks=pytest.mark.xfail(strict=True, reason=(
+            f"repro's whisper decoder carries no batch hint: GSPMD runs its self-attention "
+            f"on every data rank (ROADMAP C, note 7 on the reference); the port's split rows "
+            f"do {_UNHINTED[cell]} per device.  Held to the hinted reference instead")))
+    return (arch, cell)
+
+
+@pytest.mark.parametrize("arch,cell", [_unhinted(a, c) for a, c in PAIRS])
 def test_dot_flops_on_2x2(accounts, arch, cell):
     assert abs(_gap(*accounts[f"2x2/{arch}/{cell}"])) <= FLOPS_REL
+
+
+@pytest.mark.parametrize("cell", HINTED)
+def test_whisper_dot_flops_on_2x2_equal_hinted_reference(accounts, cell):
+    port, want = accounts[f"hinted/whisper-small/{cell}"]
+    assert port.memory_analysis().argument_size_in_bytes == want["argument"]
+    assert abs(_gap(port, want)) <= FLOPS_REL
 
 
 @pytest.mark.parametrize("arch,cell", PAIRS)

@@ -326,3 +326,66 @@ def tp(rank, world, archs):
                 res["plain_serve"] = _tp_serve(cfg, state.params, batch)
         out[arch] = res
     return out if rank == 0 else {}
+
+
+# ---------------------------------------------------------------------------
+# The batch-1 long-context decode on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+LONG_S, LONG_STEPS = 64, 6
+
+
+def _long_decode(cfg, params, seed, mesh=None):
+    """Float32 logits and the whole cache after each of ``LONG_STEPS``
+    batch-1 decode steps at the last positions of a ``LONG_S``-position
+    cache filled from ``seed`` (numpy): on ``mesh`` with every tensor
+    placed by the launcher's rules, or unsharded."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.registry import get_model
+
+    model = get_model(cfg)
+    rng = np.random.default_rng(seed)
+    cache = model.init_cache(cfg, 1, LONG_S, dtype=torch.float32, device=CPU)
+    for lc in cache:
+        for t in lc.values():
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, LONG_STEPS).astype(np.int32))
+    if mesh is not None:
+        params = SD.place(params, SD.to_shardings(SD.param_pspecs(cfg, params, mesh), mesh))
+        specs = SD.cache_pspecs(cache, mesh)
+        layers = SD.place(dict(enumerate(cache)), SD.to_shardings(dict(enumerate(specs)), mesh))
+        cache = [layers[i] for i in range(len(specs))]
+    out = []
+    with implicit_replication():
+        for i, pos in enumerate(range(LONG_S - LONG_STEPS, LONG_S)):
+            tok = {"token": tokens[i:i + 1]}
+            if mesh is not None:
+                tok = SD.place(tok, SD.to_shardings(SD.batch_pspecs(tok, mesh), mesh))
+            logits, cache = model.decode_step(cfg, params, tok["token"], pos, cache,
+                                              dtype=torch.float32)
+            # copies: a plain cache is written in place by the next step
+            out.append({"logits": _full({"l": logits})["l"].copy(),
+                        "cache": {k: v.copy() for k, v in _full(dict(enumerate(cache))).items()},
+                        "placements": [str(lc[n].placements) for lc in cache for n in ("k", "v")
+                                       if isinstance(lc.get(n), DTensor)]})
+    return out
+
+
+def long(rank, world, archs):
+    """Each arch's batch-1 decode on a (2, 2) ("data", "model") mesh under
+    the dry run's policy, and rank 0's unsharded twin."""
+    mesh = make_mesh((2, 2), ("data", "model"), CPU)
+    policy = {"dp": ("data",), "tp": "model", "moe_groups": 2}
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        from repro_torch.models.registry import get_model
+
+        params = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), CPU)
+        with use_mesh(mesh), PS.use_policy(policy), torch.no_grad():
+            res = {"sharded": _long_decode(cfg, params, 3, mesh)}
+        if rank == 0:
+            with PS.use_policy(policy), torch.no_grad():
+                res["plain"] = _long_decode(cfg, params, 3)
+        out[arch] = res
+    return out if rank == 0 else {}
