@@ -36,6 +36,7 @@ from repro_torch.core.provtensor import (
     pack_bitplane,
     unpack_bitplane,
 )
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.kernels import ops as K
 
 __all__ = [
@@ -194,6 +195,7 @@ def extend_tail_csr(rel: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     n_dst = g.shape[0]
     rows, cols = csr_pairs(rel)
     by_col = CSR.from_pairs(cols, rows, n_mid, n_src)      # the prefix's columns
+    count(HOST_SYNCS, 2)    # the nonzero, the total
     dst = torch.nonzero(g >= 0).reshape(-1)
     mids = g[dst]
     starts = by_col.row_ptr[mids].to(torch.int64)
@@ -298,8 +300,10 @@ def compose_chain(index: ProvenanceIndex, src: str, dst: str,
         # expand to the packed plane once
         n_src = index.datasets[src].n_rows
         dense = torch.zeros((n_src, g.shape[0]), dtype=torch.bool, device=dev)
+        count(HOST_SYNCS)
         dst_rows = torch.nonzero(g >= 0).reshape(-1)
         dense[g[dst_rows].long(), dst_rows] = True
+        count_host_copy(dev)
         return pack_bitplane(dense)
     planes = [op_bitplane(op.tensor, slot) for op, slot in chain]
     rowdims = [op.tensor.n_in[slot] for op, slot in chain]

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+from repro_torch.core.spans import count_host_copy
+
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,3 +27,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(x, device) -> torch.Tensor:
+    """``x`` (a tensor, array or list) as a tensor on ``device``, counting
+    a copy from the host."""
+    x = torch.as_tensor(x)
+    if x.device.type == "cpu":
+        count_host_copy(device)
+    return x.to(device)

@@ -82,6 +82,7 @@ from repro_torch.core.provtensor import (
     pack_bitplane,
     unpack_bitplane,
 )
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.core.spill import device_tensor, host_array, resolve_spill
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import wrap_int32
@@ -151,6 +152,7 @@ class _Entry:
 
 
 def _count(mask: torch.Tensor) -> int:
+    count(HOST_SYNCS)
     return int(torch.count_nonzero(mask))
 
 
@@ -395,6 +397,7 @@ class ComposedIndex:
         if entry.rel is None:
             i = torch.arange(entry.rows, dtype=torch.int64, device=self.device)
             return i, i
+        count(HOST_SYNCS)
         dst = torch.nonzero(entry.rel >= 0).reshape(-1)
         return entry.rel[dst].to(torch.int64), dst
 
@@ -408,6 +411,7 @@ class ComposedIndex:
             src, dst = csr_pairs(entry.rel)
         dense = torch.zeros((entry.rows, entry.cols), dtype=torch.bool, device=self.device)
         dense[src, dst] = True
+        count_host_copy(self.device)
         return _Entry("bitplane", pack_bitplane(dense), entry.rows, entry.cols, entry.nnz)
 
     def _to_csr(self, entry: _Entry) -> _Entry:
@@ -417,6 +421,7 @@ class ComposedIndex:
         if entry.backend == "structured":
             src, dst = self._structured_pairs(entry)
         else:
+            count(HOST_SYNCS)
             src, dst = torch.nonzero(unpack_bitplane(entry.rel, entry.cols), as_tuple=True)
         return _Entry("csr", csr_from_pairs(src, dst, entry.rows, entry.cols),
                       entry.rows, entry.cols, entry.nnz)
@@ -490,7 +495,11 @@ class ComposedIndex:
         if a.backend == "structured" and b.backend == "structured":
             ga, gb = a.gather(self.device), b.gather(self.device)
             both = (ga >= 0) & (gb >= 0)
-            if not bool(both.any()) or torch.equal(ga[both], gb[both]):
+            count(HOST_SYNCS)
+            disjoint = not bool(both.any())
+            if not disjoint:
+                count(HOST_SYNCS, 3)    # two boolean indexes, the comparison
+            if disjoint or torch.equal(ga[both], gb[both]):
                 g = torch.where(ga >= 0, ga, gb)
                 return _Entry("structured", g, a.rows, a.cols, _count(g >= 0))
         a, b = self._densify(a), self._densify(b)
@@ -785,8 +794,10 @@ class ComposedIndex:
             out = torch.zeros((masks.shape[0], entry.rows), dtype=torch.bool,
                               device=self.device)
             sel = masks[:, : entry.cols] & (g >= 0)[None, :]
+            count(HOST_SYNCS)
             bs, ds = torch.nonzero(sel, as_tuple=True)
             out[bs, g[ds].long()] = True
+            count_host_copy(self.device)
             return out
         if entry.backend == "csr":
             return (entry.rel @ masks[:, : entry.cols].to(torch.float32).T).T > 0

@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, to_device
 from repro_torch.core.provtensor import pack_pairs
 from repro_torch.core.schema import Bitset, rank_positions
 
@@ -115,7 +115,7 @@ class AttrMap:
                 plane = pack_pairs(i, o, n_in, n_out, min_words=1)
             else:
                 plane = pack_pairs(o, i, n_out, n_in, min_words=1)
-            plane = plane.to(device)
+            plane = to_device(plane, device)
             self._planes[key] = plane
         elif plane.device != device:
             raise ValueError(f"attribute plane memoised on {plane.device}, asked for {device}")

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import (
     pack_bits,
@@ -66,6 +67,7 @@ def _nbytes(t: torch.Tensor) -> int:
 def _ragged_positions(starts: torch.Tensor, degs: torch.Tensor) -> torch.Tensor:
     """Flat positions ``starts[i] + [0, degs[i])`` for every i, in order —
     the ``np.repeat`` / ``arange`` expansion of a ragged CSR gather."""
+    count(HOST_SYNCS)
     total = int(degs.sum())
     offsets = torch.cumsum(degs, dim=0) - degs
     return (torch.repeat_interleave(starts - offsets, degs, output_size=total)
@@ -95,6 +97,8 @@ class CSR:
         keep = (rows >= 0) & (cols >= 0)
         key, _ = torch.sort((rows[keep] << 32) | cols[keep])
         rows = key >> 32
+        # two boolean indexes, the bincount's least and largest row
+        count(HOST_SYNCS, 4 if key.numel() else 2)
         counts = torch.bincount(rows, minlength=n_rows)
         row_ptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=key.device)
         row_ptr[1:] = torch.cumsum(counts, dim=0)
@@ -114,8 +118,11 @@ class CSR:
         qs = torch.as_tensor(qs, dtype=torch.int64, device=self.row_ptr.device).reshape(-1)
         starts = self.row_ptr[qs].to(torch.int64)
         degs = self.row_ptr[qs + 1].to(torch.int64) - starts
-        if max_deg is None:
-            max_deg = int(degs.max()) if len(degs) else 0
+        if max_deg is None and len(degs):
+            count(HOST_SYNCS)
+            max_deg = int(degs.max())
+        elif max_deg is None:
+            max_deg = 0
         max_deg = max(max_deg, 1)
         lane = torch.arange(max_deg, dtype=torch.int64, device=qs.device)[None, :]
         live = lane < degs[:, None]
@@ -139,6 +146,7 @@ class CSR:
         starts = self.row_ptr[qs].to(torch.int64)
         degs = self.row_ptr[qs + 1].to(torch.int64) - starts
         mask[self.col_idx[_ragged_positions(starts, degs)].to(torch.int64)] = True
+        count_host_copy(mask.device)
         return mask
 
     def neighbor_mask_many(self, masks: torch.Tensor) -> torch.Tensor:
@@ -146,12 +154,14 @@ class CSR:
         one ragged gather for the whole batch."""
         out = torch.zeros((masks.shape[0], self.n_cols), dtype=torch.bool,
                           device=masks.device)
+        count(HOST_SYNCS)
         bs, qs = torch.nonzero(masks[:, : self.n_rows], as_tuple=True)
         starts = self.row_ptr[qs].to(torch.int64)
         degs = self.row_ptr[qs + 1].to(torch.int64) - starts
         flat = _ragged_positions(starts, degs)
         out[torch.repeat_interleave(bs, degs, output_size=flat.numel()),
             self.col_idx[flat].to(torch.int64)] = True
+        count_host_copy(out.device)
         return out
 
     @property
@@ -215,6 +225,7 @@ def bitplane_or_reduce(sel_words: torch.Tensor, plane: torch.Tensor,
 
 def bitplane_popcount(words: torch.Tensor) -> int:
     """Number of set bits in a packed bitplane (the relation's nnz)."""
+    count(HOST_SYNCS)
     return int(popcount32(words).sum())
 
 
@@ -245,6 +256,7 @@ class SlotGather:
     src: torch.Tensor  # int32 (n_out,)
 
     def n_links(self) -> int:
+        count(HOST_SYNCS)
         return int(torch.count_nonzero(self.src >= 0))
 
     def nbytes(self) -> int:
@@ -289,6 +301,7 @@ def _gather_bwd_csr(g: torch.Tensor, n_in: int) -> CSR:
     valid = g >= 0
     row_ptr = torch.zeros(len(g) + 1, dtype=torch.int32, device=g.device)
     row_ptr[1:] = torch.cumsum(valid.to(torch.int32), dim=0)
+    count(HOST_SYNCS)
     return CSR(n_rows=len(g), n_cols=n_in, row_ptr=row_ptr, col_idx=g[valid].to(torch.int32))
 
 
@@ -405,8 +418,11 @@ class ProvTensor:
             self._slot_nnz = [None] * self.k
         if self._slot_nnz[inp] is None:
             s = self.slot_structure(inp)
-            self._slot_nnz[inp] = s.n_links() if s is not None else \
-                int(torch.count_nonzero(self._coo[:, 1 + inp] >= 0))
+            if s is not None:
+                self._slot_nnz[inp] = s.n_links()
+            else:
+                count(HOST_SYNCS)
+                self._slot_nnz[inp] = int(torch.count_nonzero(self._coo[:, 1 + inp] >= 0))
         return self._slot_nnz[inp]
 
     def slot_shape(self, inp: int) -> tuple:
@@ -432,6 +448,7 @@ class ProvTensor:
             return max(0, min(hi, s.n) - lo)
         if isinstance(s, SlotRange):
             return max(0, min(hi, s.start + s.length) - max(lo, s.start))
+        count(HOST_SYNCS)
         if isinstance(s, SlotGather):
             return int(torch.count_nonzero(s.src[lo:hi] >= 0))
         out = self._coo[:, 0]
@@ -476,6 +493,7 @@ class ProvTensor:
         """Valid (out, in) link pairs of one slot, from whichever regime."""
         g = self.slot_gather(inp)
         if g is not None:
+            count(HOST_SYNCS)
             out = torch.nonzero(g >= 0).reshape(-1).to(torch.int32)
             return out, g[out.long()]
         return self._coo[:, 0], self._coo[:, 1 + inp]
@@ -559,8 +577,10 @@ class ProvTensor:
             return out
         g = s.src
         sel = masks[:, : self.n_out] & (g >= 0)[None, :]
+        count(HOST_SYNCS)
         bs, os_ = torch.nonzero(sel, as_tuple=True)
         out[bs, g[os_].long()] = True
+        count_host_copy(out.device)
         return out
 
     def forward_rows(self, inp: int, rows) -> torch.Tensor:
@@ -598,6 +618,7 @@ class ProvTensor:
             self._bpf = [None] * self.k
         if self._bpf[inp] is None:
             out, inn = self._slot_pairs(inp)
+            count(HOST_SYNCS, 3)    # pack_pairs: two boolean indexes, a unique
             self._bpf[inp] = pack_pairs(inn, out, self.n_in[inp], self.n_out)
         return self._bpf[inp]
 
@@ -607,6 +628,7 @@ class ProvTensor:
             self._bpb = [None] * self.k
         if self._bpb[inp] is None:
             out, inn = self._slot_pairs(inp)
+            count(HOST_SYNCS, 3)    # pack_pairs: two boolean indexes, a unique
             self._bpb[inp] = pack_pairs(out, inn, self.n_out, self.n_in[inp])
         return self._bpb[inp]
 

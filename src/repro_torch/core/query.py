@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import to_device
 from repro_torch.core.opcat import AttrMap
 from repro_torch.core.pipeline import ProvenanceIndex
 from repro_torch.core.provtensor import (
@@ -51,6 +52,7 @@ from repro_torch.core.provtensor import (
     pack_mask,
     unpack_bitplane,
 )
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 
 __all__ = [
     "Hop",
@@ -95,14 +97,15 @@ class Hop:
 # ---------------------------------------------------------------------------
 def _as_mask(rows, n: int, device) -> torch.Tensor:
     if isinstance(rows, (torch.Tensor, np.ndarray)):
-        rows = torch.as_tensor(rows).to(device)
+        rows = to_device(rows, device)
         if rows.dtype == torch.bool:
             return rows
         idx = rows.to(torch.int64).reshape(-1)
     else:
-        idx = torch.as_tensor(list(rows), dtype=torch.int64, device=device)
+        idx = to_device(torch.as_tensor(list(rows), dtype=torch.int64), device)
     m = torch.zeros(n, dtype=torch.bool, device=device)
     m[idx] = True
+    count_host_copy(device)
     return m
 
 
@@ -120,12 +123,13 @@ def is_probe_batch(rows) -> bool:
 
 def _as_mask_batch(rows_batch, n: int, device) -> torch.Tensor:
     if isinstance(rows_batch, (torch.Tensor, np.ndarray)) and rows_batch.ndim == 2:
-        rows_batch = torch.as_tensor(rows_batch).to(device)
+        rows_batch = to_device(rows_batch, device)
         if rows_batch.dtype == torch.bool:
             return rows_batch
         out = torch.zeros((rows_batch.shape[0], n), dtype=torch.bool, device=device)
         out[torch.arange(rows_batch.shape[0], device=device)[:, None],
             rows_batch.to(torch.int64)] = True
+        count_host_copy(device)
         return out
     return torch.stack([_as_mask(r, n, device) for r in rows_batch], dim=0)
 
@@ -134,6 +138,7 @@ def _trace(hops: List[List[Hop]], op, src_id: str, dst_id: str,
            contrib: torch.Tensor) -> None:
     """Record a hop for every probe whose contribution through ``op`` is
     non-empty (one host read of the per-probe counts)."""
+    count(HOST_SYNCS)
     counts = contrib.sum(dim=1).tolist()
     for b, c in enumerate(counts):
         if c:
@@ -147,6 +152,7 @@ def _trace_terms(hops: List[List[Hop]], op, src_id: str, dst_id: str,
     non-empty rows AND attrs (one host read for the whole batch)."""
     counts = new_rm.sum(dim=1)
     live = (counts > 0) & (new_aw != 0).any(dim=1)
+    count(HOST_SYNCS)
     for b, c in enumerate(torch.where(live, counts, 0).tolist()):
         if c:
             hops[b].append(Hop(op.op_id, op.info.op_name, op.info.category.value,
@@ -196,7 +202,7 @@ def forward_record_masks_batch(
         if out_mask is None:
             out_mask = torch.zeros((B, op.tensor.n_out), dtype=torch.bool, device=dev)
         for k, in_id in enumerate(op.input_ids):
-            if in_id in masks and bool(masks[in_id].any()):
+            if in_id in masks and _any(masks[in_id]):
                 contrib = op.tensor.forward_mask_batch(k, masks[in_id])
                 if collect_hops:
                     _trace(hops, op, in_id, op.output_id, contrib)
@@ -217,7 +223,7 @@ def backward_record_masks_batch(
     B = stack.shape[0]
     hops: List[List[Hop]] = [[] for _ in range(B)]
     for op in reversed(index.upstream_ops(dst)):
-        if op.output_id not in masks or not bool(masks[op.output_id].any()):
+        if op.output_id not in masks or not _any(masks[op.output_id]):
             continue
         for k, in_id in enumerate(op.input_ids):
             contrib = op.tensor.backward_mask_batch(k, masks[op.output_id])
@@ -348,14 +354,14 @@ def record_masks_terms_batch(
             if out_mask is None:
                 out_mask = torch.zeros((B, op.tensor.n_out), dtype=torch.bool, device=dev)
             for k, in_id in enumerate(op.input_ids):
-                if in_id in masks and bool(masks[in_id].any()):
+                if in_id in masks and _any(masks[in_id]):
                     contrib = op.tensor.forward_mask_batch(k, masks[in_id])
                     if collect_hops:
                         _trace(hops, op, in_id, op.output_id, contrib)
                     out_mask = out_mask | contrib
             masks[op.output_id] = out_mask
         else:
-            if op.output_id not in masks or not bool(masks[op.output_id].any()):
+            if op.output_id not in masks or not _any(masks[op.output_id]):
                 continue
             for k, in_id in enumerate(op.input_ids):
                 contrib = op.tensor.backward_mask_batch(k, masks[op.output_id])
@@ -388,8 +394,15 @@ def _attrs_backward(amap: AttrMap, attrs: torch.Tensor, n_in_attrs: int) -> torc
     return unpack_bitplane(words, n_in_attrs)[0]
 
 
+def _any(a: torch.Tensor) -> bool:
+    """``a.any()``, read on the host."""
+    count(HOST_SYNCS)
+    return bool(a.any())
+
+
 def _any2(a: torch.Tensor, b: torch.Tensor) -> bool:
     """``a.any() and b.any()`` in one host read."""
+    count(HOST_SYNCS)
     return bool(torch.stack([a.any(), (b != 0).any()]).all())
 
 
@@ -439,7 +452,7 @@ def attr_propagate_terms_batch(
                 in_ds = index.datasets[in_id]
                 plane = op.info.attr_maps[k].fwd_plane(in_ds.n_cols, out_ds.n_cols, dev)
                 for (rm, aw) in terms.get(in_id, []):
-                    if not bool(rm.any()):
+                    if not _any(rm):
                         continue
                     new_rm = op.tensor.forward_mask_batch(k, rm)
                     new_aw = bitplane_or_reduce(aw, plane, in_ds.n_cols)
@@ -449,7 +462,7 @@ def attr_propagate_terms_batch(
                             _trace_terms(hops, op, in_id, op.output_id, new_rm, new_aw)
         else:
             for (rm, aw) in terms.get(op.output_id, []):
-                if not bool(rm.any()):
+                if not _any(rm):
                     continue
                 for k, in_id in enumerate(op.input_ids):
                     in_ds = index.datasets[in_id]
@@ -498,6 +511,7 @@ def _cells_batch(terms: List[Term], B: int, n_rows: int, n_cols: int,
     probe."""
     keys = []
     for rm, aw in terms:
+        count(HOST_SYNCS, 2)
         bs, rs = torch.nonzero(rm, as_tuple=True)
         p, cs = torch.nonzero(unpack_bitplane(aw[bs], n_cols), as_tuple=True)
         keys.append((bs[p] * n_rows + rs[p]) * n_cols + cs)
@@ -508,6 +522,8 @@ def _cells_batch(terms: List[Term], B: int, n_rows: int, n_cols: int,
     per_probe, nc = max(n_rows * n_cols, 1), max(n_cols, 1)
     rest = key % per_probe
     cells = torch.stack([rest // nc, rest % nc], dim=1)
+    # the unique's size, the bincount's least and largest key, the counts
+    count(HOST_SYNCS, 4 if key.numel() else 2)
     counts = torch.bincount(key // per_probe, minlength=B).tolist()
     return list(torch.split(cells, counts))
 
@@ -525,7 +541,7 @@ def _pick_via(index: ProvenanceIndex, d1: str, d2: str, fwd_masks, b=None) -> Op
     """The naive default: the last forward-reached dataset that d2 also feeds."""
     candidates = [
         d for d, m in fwd_masks.items()
-        if d != d1 and bool(m[b].any() if b is not None else m.any())
+        if d != d1 and _any(m[b] if b is not None else m)
         and index.path_exists(d2, d)
     ]
     return candidates[-1] if candidates else None

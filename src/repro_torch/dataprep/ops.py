@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.opcat import AttrMap, CaptureInfo, OpCategory
 from repro_torch.core.schema import Bitset
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.dataprep.table import Table
 
 __all__ = [
@@ -50,7 +51,10 @@ def _on(x, t: Table, dtype: torch.dtype) -> torch.Tensor:
     """A host array or a tensor -> ``dtype`` on the table's device."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return torch.as_tensor(x).to(device=t.device, dtype=dtype)
+    x = torch.as_tensor(x)
+    if x.device.type == "cpu":
+        count_host_copy(t.device)
+    return x.to(device=t.device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +97,8 @@ def normalize(t: Table, cols: Sequence[str], kind: str = "zscore") -> OpResult:
         j = t.cid(c)
         x = t.data[:, j]
         v = x[~t.null[:, j]]
+        # the boolean index, and the two statistics read on the host
+        count(HOST_SYNCS, 3 if v.numel() else 1)
         if kind == "zscore":
             mu = float(v.mean()) if v.numel() else 0.0
             sd = float(v.std(correction=0)) if v.numel() else float("nan")
@@ -123,6 +129,7 @@ def _median(v: torch.Tensor) -> float:
     middle values of an even count."""
     s = torch.sort(v).values
     m = s.numel() // 2
+    count(HOST_SYNCS)
     if s.numel() % 2:
         return float(s[m])
     return float((s[m - 1] + s[m]) / 2)
@@ -131,6 +138,7 @@ def _median(v: torch.Tensor) -> float:
 def _mode(v: torch.Tensor) -> float:
     """numpy's ``unique`` + ``argmax`` mode: the smallest most frequent value."""
     vals, counts = torch.unique(v, sorted=True, return_counts=True)
+    count(HOST_SYNCS, 2)
     return float(vals[torch.argmax(counts)])
 
 
@@ -142,8 +150,10 @@ def impute(t: Table, cols: Sequence[str], strategy: str = "mean") -> OpResult:
         j = t.cid(c)
         x = t.data[:, j]
         valid = ~t.null[:, j]
+        count(HOST_SYNCS)
         v = x[valid]
         if strategy == "mean":
+            count(HOST_SYNCS, 1 if v.numel() else 0)
             fill = float(v.mean()) if v.numel() else 0.0
         elif strategy == "median":
             fill = _median(v) if v.numel() else 0.0
@@ -171,6 +181,7 @@ def _quantile_edges(x: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     statistics come from one sort on the device, the interpolation runs on
     the host with numpy's own formula."""
     n = x.numel()
+    count(HOST_SYNCS)
     if bool(torch.isnan(x).any()):
         return np.full(len(qs), np.nan)
     virtual = (n - 1) * qs
@@ -181,6 +192,8 @@ def _quantile_edges(x: torch.Tensor, qs: np.ndarray) -> np.ndarray:
     nxt[above] = n - 1
     gamma = virtual - np.floor(virtual)
     picks = torch.as_tensor(np.concatenate([prev, nxt]), device=x.device)
+    count_host_copy(x.device)
+    count(HOST_SYNCS)
     order = torch.sort(x).values[picks].cpu().numpy()      # float32
     a, b = order[: len(qs)], order[len(qs):]
     diff = (b - a).astype(np.float64)                       # float32 difference
@@ -194,12 +207,14 @@ def discretize(t: Table, col: str, n_bins: int, kind: str = "uniform") -> OpResu
     j = t.cid(col)
     x = t.data[:, j]
     if kind == "uniform":
+        count(HOST_SYNCS, 2)
         lo, hi = float(x.min()), float(x.max())
         edges = np.linspace(lo, hi, n_bins + 1)[1:-1]
     elif kind == "quantile":
         edges = _quantile_edges(x, np.linspace(0, 1, n_bins + 1)[1:-1])
     else:
         raise ValueError(kind)
+    count_host_copy(t.device)
     edges_t = torch.as_tensor(edges, dtype=torch.float64, device=t.device)
     out.data[:, j] = torch.searchsorted(edges_t, x.to(torch.float64)).to(torch.float32)
     info = CaptureInfo(
@@ -251,7 +266,9 @@ def drop_columns(t: Table, cols: Sequence[str]) -> OpResult:
 # ---------------------------------------------------------------------------
 def filter_rows(t: Table, mask, op_name: str = "filter") -> OpResult:
     """Observation-based capture via preserved dataframe indices (§III-B)."""
-    kept = torch.nonzero(_on(mask, t, torch.bool)).reshape(-1)
+    mask = _on(mask, t, torch.bool)
+    count(HOST_SYNCS)
+    kept = torch.nonzero(mask).reshape(-1)
     out = t.take_rows(kept, keep_index=True)
     info = CaptureInfo(
         op_name=op_name,
@@ -271,6 +288,7 @@ def undersample(t: Table, frac: float, seed: int = 0) -> OpResult:
     kept = np.sort(rng.choice(t.n_rows, size=max(1, int(t.n_rows * frac)), replace=False))
     mask = torch.zeros(t.n_rows, dtype=torch.bool, device=t.device)
     mask[_on(kept, t, torch.int64)] = True
+    count_host_copy(t.device)
     out, info = filter_rows(t, mask, op_name="undersample")
     info.params = {"frac": frac, "seed": seed}
     return out, info
@@ -283,12 +301,17 @@ def onehot(t: Table, col: str, n_values: Optional[int] = None) -> OpResult:
     j = t.cid(col)
     x = t.data[:, j].to(torch.int64)
     contextual = n_values is None
-    if n_values is None:
-        n_values = int(x.max()) + 1 if len(x) else 1
+    if n_values is None and len(x):
+        count(HOST_SYNCS)
+        n_values = int(x.max()) + 1
+    elif n_values is None:
+        n_values = 1
     eye = torch.zeros((t.n_rows, n_values), dtype=torch.float32, device=t.device)
     valid = (x >= 0) & (x < n_values) & ~t.null[:, j]
+    count(HOST_SYNCS)
     rows = torch.nonzero(valid).reshape(-1)
     eye[rows, x[rows]] = 1.0
+    count_host_copy(t.device)
     out = Table(
         columns=t.columns + [f"{col}={v}" for v in range(n_values)],
         data=torch.cat([t.data, eye], dim=1),
@@ -315,6 +338,7 @@ def string_indexer(t: Table, col: str) -> OpResult:
     """Adds ``col#idx`` = dense rank of the value (contextual: needs domain)."""
     j = t.cid(col)
     x = t.data[:, j]
+    count(HOST_SYNCS, 3)        # the boolean index, the unique, the domain's read
     vals = torch.unique(x[~t.null[:, j]], sorted=True)
     codes = torch.searchsorted(vals, x.contiguous()).to(torch.float32)
     out = Table(
@@ -341,6 +365,7 @@ def space_transform(t: Table, cols: Sequence[str], proj, prefix: str = "pc") -> 
     """Linear feature map (PCA-style) onto ``proj.shape[1]`` new attributes."""
     ids = [t.cid(c) for c in cols]
     proj = _on(proj, t, torch.float32)
+    count_host_copy(t.device)   # the column list
     newvals = t.data[:, ids] @ proj
     names = [f"{prefix}{i}" for i in range(proj.shape[1])]
     out = Table(
@@ -422,6 +447,7 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
     lo = torch.searchsorted(rk_sorted, lk)
     hi = torch.searchsorted(rk_sorted, lk, right=True)
     counts = hi - lo
+    count(HOST_SYNCS)
     total = int(counts.sum())
     l_rows = torch.repeat_interleave(torch.arange(left.n_rows, dtype=torch.int64, device=dev),
                                      counts, output_size=total)
@@ -432,11 +458,14 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
 
     pairs = [torch.stack([l_rows, r_rows], dim=1)]
     if how in ("left", "outer"):
+        count(HOST_SYNCS)
         dangling_l = torch.nonzero(counts == 0).reshape(-1)
         pairs.append(torch.stack([dangling_l, torch.full_like(dangling_l, -1)], dim=1))
     if how in ("right", "outer"):
         matched_r = torch.zeros(right.n_rows, dtype=torch.bool, device=dev)
         matched_r[r_rows] = True
+        count_host_copy(dev)
+        count(HOST_SYNCS)
         dangling_r = torch.nonzero(~matched_r).reshape(-1)
         pairs.append(torch.stack([torch.full_like(dangling_r, -1), dangling_r], dim=1))
     pairs = torch.cat(pairs, dim=0)
@@ -456,6 +485,7 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
     lj = [left.cid(c) for c in l_cols]
     rj = [right.cid(c) for c in r_cols]
     lkey, rkey = left.cid(on), right.cid(on)
+    count_host_copy(dev, 4)     # the four column lists below
     data = torch.cat([
         torch.where(has_l, left.data[li, lkey: lkey + 1], right.data[ri, rkey: rkey + 1]),
         torch.where(has_l, left.data[li][:, lj], 0.0),

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.spans import count_host_copy
 
 __all__ = ["Table"]
 
@@ -104,6 +105,7 @@ class Table:
 
     def take_cols(self, names: Sequence[str]) -> "Table":
         ids = [self.columns.index(c) for c in names]
+        count_host_copy(self.device, 2)     # the column list, for data and nulls
         return Table(
             columns=list(names),
             data=self.data[:, ids],

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import ProvenanceIndex
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.dataprep.table import Table
 from repro_torch.dataprep.tracked import TrackedTable, track
 
@@ -90,9 +91,11 @@ def _compas_filter(d: TrackedTable) -> TrackedTable:
     VIII count)."""
     vals = d.table.col("a21")
     thresh = torch.kthvalue(vals, len(vals) - 6907 + 1).values  # np.partition's pick
+    count(HOST_SYNCS)
     kept = torch.nonzero(vals >= thresh).reshape(-1)[:6907]
     m2 = torch.zeros(len(vals), dtype=torch.bool, device=vals.device)
     m2[kept] = True
+    count_host_copy(vals.device)
     return d.filter_rows(m2, op_name="filter:days_b_screening")
 
 

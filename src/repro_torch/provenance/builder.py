@@ -33,6 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import to_device
+from repro_torch.core.spans import count_host_copy, span
 from repro_torch.provenance.plan import QueryPlan
 
 __all__ = ["prov", "ProvQuery"]
@@ -52,7 +54,7 @@ def _single_mask(rows, n: int, what: str, device) -> torch.Tensor:
     """One probe -> (n,) bool.  Accepts a bool mask, an iterable of ints, or
     a 1-D integer array or tensor.  Never guesses batch."""
     if isinstance(rows, (np.ndarray, torch.Tensor)):
-        rows = torch.as_tensor(rows).to(device)
+        rows = to_device(rows, device)
         if rows.ndim != 1:
             raise ValueError(
                 f".{what}(...) takes ONE probe; use .{what}_batch(...) for a "
@@ -67,9 +69,10 @@ def _single_mask(rows, n: int, what: str, device) -> torch.Tensor:
             return rows.clone()
         idx = rows.to(torch.int64)
     else:
-        idx = torch.as_tensor(list(rows), dtype=torch.int64, device=device)
+        idx = to_device(torch.as_tensor(list(rows), dtype=torch.int64), device)
     m = torch.zeros(n, dtype=torch.bool, device=device)
     m[idx] = True
+    count_host_copy(device)
     return m
 
 
@@ -77,7 +80,7 @@ def _batch_masks(batch, n: int, what: str, device) -> torch.Tensor:
     """A batch of probes -> (B, n) bool.  Accepts a 2-D bool mask stack, a
     2-D integer index array, or a list/tuple of probe sets."""
     if isinstance(batch, (np.ndarray, torch.Tensor)):
-        batch = torch.as_tensor(batch).to(device)
+        batch = to_device(batch, device)
         if batch.ndim != 2:
             raise ValueError(
                 f".{what}_batch(...) takes a batch; use .{what}(...) for a "
@@ -92,6 +95,7 @@ def _batch_masks(batch, n: int, what: str, device) -> torch.Tensor:
             return batch.clone()
         out = torch.zeros((batch.shape[0], n), dtype=torch.bool, device=device)
         out[torch.arange(batch.shape[0], device=device)[:, None], batch.to(torch.int64)] = True
+        count_host_copy(device)
         return out
     if not isinstance(batch, (list, tuple)):
         raise ValueError(f".{what}_batch(...) takes a list of probe sets")
@@ -201,6 +205,10 @@ class ProvQuery:
     # -- compile / execute -----------------------------------------------------
     def plan(self) -> QueryPlan:
         """Validate and compile to the immutable :class:`QueryPlan` IR."""
+        with span("planner.plan"):
+            return self._plan()
+
+    def _plan(self) -> QueryPlan:
         if self._source is None:
             raise ValueError("missing .source(dataset)")
         kind = self._kind

@@ -52,12 +52,15 @@ import torch
 
 from repro_torch.core import query as Q
 from repro_torch.core.costmodel import constants_provenance
+from repro_torch.core.spans import HOST_SYNCS, count, span
 from repro_torch.provenance.plan import QueryPlan
 
 __all__ = ["QuerySession", "run_many_fused"]
 
 
 def _flatnonzeros(mask_stack: torch.Tensor) -> List[torch.Tensor]:
+    """Each probe's row indices: one ``nonzero``, one host read, a probe."""
+    count(HOST_SYNCS, mask_stack.shape[0])
     return [torch.nonzero(m).reshape(-1) for m in mask_stack]
 
 
@@ -177,8 +180,11 @@ class QuerySession:
         uncached = [p for p in pairs if not self.composed.contains(*p)]
         if not uncached:
             return None  # every leg already composed: contains-path decides
-        probe_rows = (float(plan.rows.sum()) / max(plan.n_probes, 1)
-                      if plan.rows is not None else 1.0)
+        if plan.rows is not None:
+            count(HOST_SYNCS)
+            probe_rows = float(plan.rows.sum()) / max(plan.n_probes, 1)
+        else:
+            probe_rows = 1.0
         legs = [
             self.costmodel.choose(
                 p[0], p[1], plan.n_probes, probe_rows, note=note,
@@ -253,12 +259,13 @@ class QuerySession:
         """Execute one plan.  Single-probe plans return one result (an int64
         index tensor, an ``(n, 2)`` int64 cell list, or ``(result, hops)``);
         batched plans return one such result per probe."""
-        self.counters["plans"] += 1
-        if plan.kind == "transformations":
-            self.counters["meta"] += 1
-            return self._exec_transformations(plan)
-        per = self._execute(plan)
-        return per if plan.batched else per[0]
+        with span("session.run"):
+            self.counters["plans"] += 1
+            if plan.kind == "transformations":
+                self.counters["meta"] += 1
+                return self._exec_transformations(plan)
+            per = self._execute(plan)
+            return per if plan.batched else per[0]
 
     def run_many(self, plans: Sequence) -> List:
         """Execute a batch of plans (builders or compiled plans), fusing
@@ -306,8 +313,12 @@ class QuerySession:
                                             collect_hops=collect_hops)
 
     # -- executors (each returns one payload per probe) -------------------------
+    # each runs the plan up to its (B, n) mask stack or attribute terms under
+    # ``session.execute``, and turns them into per-probe answers under
+    # ``session.extract``
     def _execute(self, plan: QueryPlan) -> List:
-        strategy = self._strategy(plan)
+        with span("session.route"):
+            strategy = self._strategy(plan)
         self.counters[strategy] += 1
         if plan.kind == "record":
             return self._exec_record(plan, strategy)
@@ -342,21 +353,27 @@ class QuerySession:
 
     def _exec_record(self, plan: QueryPlan, strategy: str) -> List:
         if not plan.how:
-            return _flatnonzeros(self._record_masks(plan, strategy))
+            with span("session.execute"):
+                masks = self._record_masks(plan, strategy)
+            with span("session.extract"):
+                return _flatnonzeros(masks)
         # how-traces only live on the walk (see _strategy)
         walker = (Q.forward_record_masks_batch if plan.direction == "fwd"
                   else Q.backward_record_masks_batch)
-        masks, hops = walker(self.index, plan.source, plan.rows, collect_hops=True)
-        out = masks.get(plan.target, self._empty(plan))
-        return list(zip(_flatnonzeros(out), hops))
+        with span("session.execute"):
+            masks, hops = walker(self.index, plan.source, plan.rows, collect_hops=True)
+            out = masks.get(plan.target, self._empty(plan))
+        with span("session.extract"):
+            return list(zip(_flatnonzeros(out), hops))
 
     def _exec_cells(self, plan: QueryPlan) -> List:
         ds = self.index.datasets[plan.target]
-        out = Q._attr_propagate_batch(self.index, plan.source, plan.rows, plan.attrs,
-                                      plan.direction, collect_hops=plan.how)
-        terms = out[0]
-        cells = Q._cells_batch(terms.get(plan.target, []), plan.n_probes, ds.n_rows,
-                               ds.n_cols, self.index.device)
+        with span("session.execute"):
+            out = Q._attr_propagate_batch(self.index, plan.source, plan.rows, plan.attrs,
+                                          plan.direction, collect_hops=plan.how)
+        with span("session.extract"):
+            cells = Q._cells_batch(out[0].get(plan.target, []), plan.n_probes, ds.n_rows,
+                                   ds.n_cols, self.index.device)
         if plan.how:
             return list(zip(cells, out[2]))
         return cells
@@ -364,39 +381,50 @@ class QuerySession:
     def _exec_co_contributory(self, plan: QueryPlan, strategy: str) -> List:
         d1, d2, via = plan.source, plan.target, plan.via
         if strategy == "hopcache":
-            via_masks = self.composed.probe_forward(plan.rows, d1, via)
-            return _flatnonzeros(self.composed.probe_backward(via_masks, via, d2))
+            with span("session.execute"):
+                via_masks = self.composed.probe_forward(plan.rows, d1, via)
+                masks = self.composed.probe_backward(via_masks, via, d2)
+            with span("session.extract"):
+                return _flatnonzeros(masks)
         B = plan.n_probes
-        fwd = Q.forward_record_masks_batch(self.index, d1, plan.rows)
-        empty = torch.zeros(0, dtype=torch.int64, device=self.index.device)
-        results: List[torch.Tensor] = [empty] * B
-        groups: Dict[str, List[int]] = {}
-        for b in range(B):
-            v = via if via is not None else Q._pick_via(self.index, d1, d2, fwd, b)
-            if v is None or v not in fwd or not bool(fwd[v][b].any()):
-                continue
-            groups.setdefault(v, []).append(b)
-        for v, bs in groups.items():
-            back = Q.backward_record_masks_batch(self.index, v, fwd[v][bs])
-            if d2 not in back:
-                continue
-            for i, b in enumerate(bs):
-                results[b] = torch.nonzero(back[d2][i]).reshape(-1)
-        return results
+        with span("session.execute"):
+            fwd = Q.forward_record_masks_batch(self.index, d1, plan.rows)
+            groups: Dict[str, List[int]] = {}
+            for b in range(B):
+                v = via if via is not None else Q._pick_via(self.index, d1, d2, fwd, b)
+                if v is None or v not in fwd or not Q._any(fwd[v][b]):
+                    continue
+                groups.setdefault(v, []).append(b)
+            backs = []
+            for v, bs in groups.items():
+                back = Q.backward_record_masks_batch(self.index, v, fwd[v][bs])
+                if d2 in back:
+                    backs.append((bs, back[d2]))
+        with span("session.extract"):
+            empty = torch.zeros(0, dtype=torch.int64, device=self.index.device)
+            results: List[torch.Tensor] = [empty] * B
+            for bs, masks in backs:
+                for b, row in zip(bs, _flatnonzeros(masks)):
+                    results[b] = row
+            return results
 
     def _exec_co_dependency(self, plan: QueryPlan, strategy: str) -> List:
         d2, d1, d3 = plan.source, plan.anchor, plan.target
-        if strategy == "hopcache":
-            anc = self.composed.probe_backward(plan.rows, d2, d1)
-            return _flatnonzeros(self.composed.probe_forward(anc, d1, d3))
-        empty = [torch.zeros(0, dtype=torch.int64, device=self.index.device)] * plan.n_probes
-        back = Q.backward_record_masks_batch(self.index, d2, plan.rows)
-        if d1 not in back or not bool(back[d1].any()):
-            return list(empty)
-        fwd = Q.forward_record_masks_batch(self.index, d1, back[d1])
-        if d3 not in fwd:
-            return list(empty)
-        return _flatnonzeros(fwd[d3])
+        with span("session.execute"):
+            if strategy == "hopcache":
+                anc = self.composed.probe_backward(plan.rows, d2, d1)
+                masks = self.composed.probe_forward(anc, d1, d3)
+            else:
+                masks = None
+                back = Q.backward_record_masks_batch(self.index, d2, plan.rows)
+                if d1 in back and Q._any(back[d1]):
+                    fwd = Q.forward_record_masks_batch(self.index, d1, back[d1])
+                    masks = fwd.get(d3)
+        with span("session.extract"):
+            if masks is None:
+                return [torch.zeros(0, dtype=torch.int64, device=self.index.device)] \
+                    * plan.n_probes
+            return _flatnonzeros(masks)
 
     def _exec_transformations(self, plan: QueryPlan) -> List[Dict]:
         return [
