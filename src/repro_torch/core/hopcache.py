@@ -841,16 +841,18 @@ class ComposedIndex:
 
     def q1_forward(self, src: str, rows, dst: str):
         """Q1 via ONE batched probe of the composed relation (no DAG walk)."""
+        from repro_torch.core.query import rows_per_probe
+
         masks, batched = self._probe_masks(rows, self.index.datasets[src].n_rows)
-        out = self._forward_probe(masks, src, dst)
-        res = [torch.nonzero(m).reshape(-1) for m in out]
+        res = rows_per_probe(self._forward_probe(masks, src, dst))
         return res if batched else res[0]
 
     def q2_backward(self, dst: str, rows, src: str):
         """Q2: src rows whose composed relation row intersects the probe set."""
+        from repro_torch.core.query import rows_per_probe
+
         masks, batched = self._probe_masks(rows, self.index.datasets[dst].n_rows)
-        out = self._backward_probe(masks, src, dst)
-        res = [torch.nonzero(m).reshape(-1) for m in out]
+        res = rows_per_probe(self._backward_probe(masks, src, dst))
         return res if batched else res[0]
 
     def q10_co_contributory(self, d1: str, rows, d2: str, via: str):

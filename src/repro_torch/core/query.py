@@ -24,6 +24,8 @@ thread (row-set x attr-set) terms through the Table-VI attribute maps.
   index on the card, its plain version on the CPU.  ``repro`` runs this
   contraction in numpy on the host; the port keeps the rule that the
   operands' device decides.
+* :func:`rows_per_probe` turns a ``(B, n)`` mask stack into per-probe row
+  lists with one host read for the whole batch.
 * :func:`_cells_batch` turns the terms that reach the target into sorted
   ``(n, 2)`` int64 cell lists per probe, from the selected rows alone
   (no ``(B, n_rows, nw)`` accumulator).
@@ -64,6 +66,7 @@ __all__ = [
     "record_masks_terms_batch",
     "attr_propagate_terms_batch",
     "is_probe_batch",
+    "rows_per_probe",
     "q1_forward",
     "q2_backward",
     "q3_forward_attr",
@@ -496,6 +499,40 @@ def _attr_propagate_batch(
         am0 = _as_mask(attrs_batch, ds0.n_cols, dev)[None, :].expand(B, ds0.n_cols)
     entry = {start: [(rm0, pack_bitplane(am0.contiguous()))]}
     return attr_propagate_terms_batch(index, entry, direction, collect_hops=collect_hops)
+
+
+def rows_per_probe(mask_stack: torch.Tensor) -> List[torch.Tensor]:
+    """Each probe's row indices from a ``(B, n)`` bool mask stack: int64,
+    ascending, on the stack's device, as ``torch.nonzero`` gives them row
+    by row, with ONE host read for the whole batch.
+
+    The per-probe counts are reduced on the device and read with one
+    ``.tolist()``; their sum sizes a ``nonzero_static`` over the stack,
+    which needs no read, and its row column splits by the counts, so the
+    answers are views of one buffer.  A single probe takes one ``nonzero``
+    (one read either way, and no reduction)."""
+    B = mask_stack.shape[0]
+    if B == 0:
+        return []
+    count(HOST_SYNCS, 1)
+    if B == 1:
+        return [torch.nonzero(mask_stack[0]).reshape(-1)]
+    counts = _row_counts(mask_stack).tolist()
+    rows = torch.nonzero_static(mask_stack, size=sum(counts))[:, 1].contiguous()
+    return list(torch.split(rows, counts))
+
+
+def _row_counts(mask_stack: torch.Tensor) -> torch.Tensor:
+    """The set entries of each row of a ``(B, n)`` bool stack, on its
+    device.  A bool ``sum`` first copies the stack to int64, eight times
+    its bytes; byte sums over runs of 255 and over the shorter tail, which
+    a uint8 holds, read the stack where it lies and leave ``n / 255``
+    partial counts a row."""
+    B, n = mask_stack.shape
+    m8 = mask_stack.view(torch.uint8)
+    k = n - n % 255
+    runs = m8[:, :k].reshape(B, -1, 255).sum(2, dtype=torch.uint8)
+    return runs.sum(1) + m8[:, k:].sum(1, dtype=torch.uint8)
 
 
 def _cells_batch(terms: List[Term], B: int, n_rows: int, n_cols: int,

@@ -68,7 +68,7 @@ import torch
 from repro_torch.core.compose import binary_csr, csr_pairs, csr_from_pairs
 from repro_torch.core.costmodel import RelStats, cross_route_choose
 from repro_torch.core.provtensor import pack_bitplane, unpack_bitplane
-from repro_torch.core.query import Hop, _cells_batch
+from repro_torch.core.query import Hop, _cells_batch, rows_per_probe
 from repro_torch.provenance.catalog import (
     CapabilityError,
     FederationError,
@@ -77,7 +77,7 @@ from repro_torch.provenance.catalog import (
     split_ref,
 )
 from repro_torch.provenance.plan import QueryPlan
-from repro_torch.provenance.session import _flatnonzeros, run_many_fused
+from repro_torch.provenance.session import run_many_fused
 
 __all__ = ["FederatedSession"]
 
@@ -713,7 +713,7 @@ class FederatedSession:
                 dest = entries.setdefault(far_m, {})
                 prev = dest.get(far_ds)
                 dest[far_ds] = stitched if prev is None else prev | stitched
-        return list(zip(_flatnonzeros(out), hops))
+        return list(zip(rows_per_probe(out), hops))
 
     def _execute_cells(self, plan: QueryPlan) -> List:
         """Cross-member cells / cells+how: per-member attr-TERM walks
@@ -813,7 +813,7 @@ class FederatedSession:
         else:
             raise FederationError(
                 f"{plan.kind} plans take one dataset ref and never cross members")
-        return _flatnonzeros(out)
+        return rows_per_probe(out)
 
     # -- the QuerySession surface ----------------------------------------------
     def run(self, plan):

@@ -58,12 +58,6 @@ from repro_torch.provenance.plan import QueryPlan
 __all__ = ["QuerySession", "run_many_fused"]
 
 
-def _flatnonzeros(mask_stack: torch.Tensor) -> List[torch.Tensor]:
-    """Each probe's row indices: one ``nonzero``, one host read, a probe."""
-    count(HOST_SYNCS, mask_stack.shape[0])
-    return [torch.nonzero(m).reshape(-1) for m in mask_stack]
-
-
 def run_many_fused(plans: Sequence, run_one, execute_batched,
                    counters: Dict[str, int]) -> List:
     """The shared ``run_many`` fusion contract: group plans by
@@ -356,7 +350,7 @@ class QuerySession:
             with span("session.execute"):
                 masks = self._record_masks(plan, strategy)
             with span("session.extract"):
-                return _flatnonzeros(masks)
+                return Q.rows_per_probe(masks)
         # how-traces only live on the walk (see _strategy)
         walker = (Q.forward_record_masks_batch if plan.direction == "fwd"
                   else Q.backward_record_masks_batch)
@@ -364,7 +358,7 @@ class QuerySession:
             masks, hops = walker(self.index, plan.source, plan.rows, collect_hops=True)
             out = masks.get(plan.target, self._empty(plan))
         with span("session.extract"):
-            return list(zip(_flatnonzeros(out), hops))
+            return list(zip(Q.rows_per_probe(out), hops))
 
     def _exec_cells(self, plan: QueryPlan) -> List:
         ds = self.index.datasets[plan.target]
@@ -385,7 +379,7 @@ class QuerySession:
                 via_masks = self.composed.probe_forward(plan.rows, d1, via)
                 masks = self.composed.probe_backward(via_masks, via, d2)
             with span("session.extract"):
-                return _flatnonzeros(masks)
+                return Q.rows_per_probe(masks)
         B = plan.n_probes
         with span("session.execute"):
             fwd = Q.forward_record_masks_batch(self.index, d1, plan.rows)
@@ -404,7 +398,7 @@ class QuerySession:
             empty = torch.zeros(0, dtype=torch.int64, device=self.index.device)
             results: List[torch.Tensor] = [empty] * B
             for bs, masks in backs:
-                for b, row in zip(bs, _flatnonzeros(masks)):
+                for b, row in zip(bs, Q.rows_per_probe(masks)):
                     results[b] = row
             return results
 
@@ -424,7 +418,7 @@ class QuerySession:
             if masks is None:
                 return [torch.zeros(0, dtype=torch.int64, device=self.index.device)] \
                     * plan.n_probes
-            return _flatnonzeros(masks)
+            return Q.rows_per_probe(masks)
 
     def _exec_transformations(self, plan: QueryPlan) -> List[Dict]:
         return [
