@@ -54,7 +54,7 @@ from repro_torch.core.provtensor import (
     pack_mask,
     unpack_bitplane,
 )
-from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy, span
 
 __all__ = [
     "Hop",
@@ -81,6 +81,10 @@ __all__ = [
 ]
 
 Term = Tuple[torch.Tensor, torch.Tensor]
+
+# counted once per ``bitplane_or_reduce`` dispatch of the attribute walk,
+# inside its ``query.attr_hop`` span
+ATTR_HOPS = "attr_hops"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,14 +156,16 @@ def _trace(hops: List[List[Hop]], op, src_id: str, dst_id: str,
 def _trace_terms(hops: List[List[Hop]], op, src_id: str, dst_id: str,
                  new_rm: torch.Tensor, new_aw: torch.Tensor) -> None:
     """Record a hop for every probe whose term survives ``op`` with
-    non-empty rows AND attrs (one host read for the whole batch)."""
-    counts = new_rm.sum(dim=1)
-    live = (counts > 0) & (new_aw != 0).any(dim=1)
-    count(HOST_SYNCS)
-    for b, c in enumerate(torch.where(live, counts, 0).tolist()):
-        if c:
-            hops[b].append(Hop(op.op_id, op.info.op_name, op.info.category.value,
-                               src_id, dst_id, int(c)))
+    non-empty rows AND attrs (one host read for the whole batch), under a
+    ``query.how_trace`` span."""
+    with span("query.how_trace"):
+        counts = new_rm.sum(dim=1)
+        live = (counts > 0) & (new_aw != 0).any(dim=1)
+        count(HOST_SYNCS)
+        for b, c in enumerate(torch.where(live, counts, 0).tolist()):
+            if c:
+                hops[b].append(Hop(op.op_id, op.info.op_name, op.info.category.value,
+                                   src_id, dst_id, int(c)))
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +443,10 @@ def attr_propagate_terms_batch(
     int32)`` packed terms on the index's device.  Per op the semantics are
     those of :func:`_attr_propagate_batch` (a single-entry seed reproduces
     it term for term), over every op reachable from ANY entry.  Each live
-    (op, input, term) hop is one ``bitmatmul`` dispatch.
+    (op, input, term) hop is one ``bitmatmul`` dispatch, under a
+    ``query.attr_hop`` span on the index's device that counts
+    :data:`ATTR_HOPS` (the row-mask move and the contraction; off, one
+    module-global check a hop).
 
     Returns ``(terms, B, hops)`` with ``collect_hops``, else ``(terms, B)``.
     """
@@ -457,8 +466,11 @@ def attr_propagate_terms_batch(
                 for (rm, aw) in terms.get(in_id, []):
                     if not _any(rm):
                         continue
-                    new_rm = op.tensor.forward_mask_batch(k, rm)
-                    new_aw = bitplane_or_reduce(aw, plane, in_ds.n_cols)
+                    with span("query.attr_hop", dev) as sp:
+                        new_rm = op.tensor.forward_mask_batch(k, rm)
+                        new_aw = bitplane_or_reduce(aw, plane, in_ds.n_cols)
+                        if sp is not None:
+                            count(ATTR_HOPS)
                     if _any2(new_rm, new_aw):
                         terms.setdefault(op.output_id, []).append((new_rm, new_aw))
                         if collect_hops:
@@ -470,8 +482,11 @@ def attr_propagate_terms_batch(
                 for k, in_id in enumerate(op.input_ids):
                     in_ds = index.datasets[in_id]
                     plane = op.info.attr_maps[k].bwd_plane(in_ds.n_cols, out_ds.n_cols, dev)
-                    new_rm = op.tensor.backward_mask_batch(k, rm)
-                    new_aw = bitplane_or_reduce(aw, plane, out_ds.n_cols)
+                    with span("query.attr_hop", dev) as sp:
+                        new_rm = op.tensor.backward_mask_batch(k, rm)
+                        new_aw = bitplane_or_reduce(aw, plane, out_ds.n_cols)
+                        if sp is not None:
+                            count(ATTR_HOPS)
                     if _any2(new_rm, new_aw):
                         terms.setdefault(in_id, []).append((new_rm, new_aw))
                         if collect_hops:
