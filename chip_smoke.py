@@ -188,9 +188,14 @@ PyTorch built for CUDA.  It
    and Census Q2 baselines and at TPC-DI SF20 (the rank over the 64-probe
    Q2 frontier at the join's 2,411,006-row input, the gather of every row
    of the join's out -> in CSR), the SF20 inputs held to the plain
-   versions and timed cold, rotating among copies that exceed the L2; then
-   end-to-end latencies of the walk, the default hop-cache and the
-   bitplane hop-cache.
+   versions and timed cold, rotating among copies that exceed the L2;
+   ``join_gather`` (``join_gather_phase``) held to its plain version bit
+   for bit over widths around a warp's 32 words, keys anywhere, ragged
+   warps, absent sides and rows outside their tables, and on the SF20
+   join (2,411,006 pairs, 21 + 15 -> 35 columns), one launch a captured
+   SF20 join, the kernels of a join under the profiler, and its times and
+   bound there; then end-to-end latencies of the walk, the default
+   hop-cache and the bitplane hop-cache.
 
 Every phase prints one JSON line.  Any failure raises and the exit code is
 not 0.  The last three lines are the kernel table (with each kernel's
@@ -656,6 +661,131 @@ def gather_times(copies, max_deg, plain_reps=5):
            "library_ms": None}
     return _bound(row, (q + r + 1 + entries + q * max_deg) * 4, 0.0, 1)
 
+
+
+# -- join_gather (phase 9b) ---------------------------------------------------------
+JOIN_SWEEP_WIDTHS = ((1, 1), (2, 1), (3, 5), (21, 15), (16, 17), (17, 17), (32, 1), (40, 30))
+JOIN_SWEEP_PAIRS = (0, 1, 31, 32, 33, 257, 10_007)
+SF20_JOIN_ROWS = (2_411_006, 2_601_648)     # trade, security (Table XI)
+
+
+def same_join_output(got, want) -> bool:
+    """(data, null) pairs equal bit for bit."""
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+def join_sweep(gen, dev):
+    """``join_gather_cuda`` against ``ref.join_gather_ref``, bit for bit,
+    over widths around a warp's 32 output words, keys at the first, a
+    middle and the last column, ragged last warps and pairs with either
+    side absent; then pairs whose rows lie outside their tables, which the
+    kernel reads as absent.  Returns the number of cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.join_gather import join_gather_cuda
+
+    cases = 0
+    nl, nr = 97, 89
+    for cl, cr in JOIN_SWEEP_WIDTHS:
+        ld = torch.randn(nl, cl, generator=gen, device=dev)
+        ln = torch.rand(nl, cl, generator=gen, device=dev) < 0.3
+        rd = torch.randn(nr, cr, generator=gen, device=dev)
+        rn = torch.rand(nr, cr, generator=gen, device=dev) < 0.3
+        for n in JOIN_SWEEP_PAIRS:
+            side = torch.randint(0, 3, (n,), generator=gen, device=dev)
+            li = torch.randint(0, nl, (n,), generator=gen, device=dev)
+            ri = torch.randint(0, nr, (n,), generator=gen, device=dev)
+            pairs = torch.stack([torch.where(side == 2, -1, li), torch.where(side == 1, -1, ri)],
+                                dim=1).to(torch.int32)
+            for lkey, rkey in ((0, 0), (cl // 2, cr - 1), (cl - 1, cr // 2)):
+                got = join_gather_cuda(ld, ln, rd, rn, pairs, lkey, rkey)
+                want = ref.join_gather_ref(ld, ln, rd, rn, pairs, lkey, rkey)
+                check(same_join_output(got, want),
+                      f"join_gather != plain at widths {cl}, {cr}, {n} pairs, keys {lkey}, {rkey}")
+                cases += 1
+        outside = torch.tensor([[nl, 3], [2, nr], [nl + 5, 1], [4, -9]], dtype=torch.int32,
+                               device=dev)
+        absent = torch.tensor([[-1, 3], [2, -1], [-1, 1], [4, -1]], dtype=torch.int32, device=dev)
+        check(same_join_output(join_gather_cuda(ld, ln, rd, rn, outside, 0, cr - 1),
+                               ref.join_gather_ref(ld, ln, rd, rn, absent, 0, cr - 1)),
+              f"join_gather read a row outside its table at widths {cl}, {cr}")
+        cases += 1
+    torch.cuda.synchronize(dev)
+    return cases
+
+
+def sf20_join_tables(gen, dev):
+    """The benchmark's TPC-DI SF20 join inputs, made on the card: trade
+    (2,411,006 x 21: a key drawn uniformly among the securities, then 20
+    standard normal columns) and security (2,601,648 x 15: keys 0..n-1,
+    then 14); no nulls."""
+    from repro_torch.dataprep.table import Table
+
+    n_l, n_r = SF20_JOIN_ROWS
+    left = torch.randn(n_l, 21, generator=gen, device=dev)
+    left[:, 0] = torch.randint(0, n_r, (n_l,), generator=gen, device=dev).to(torch.float32)
+    right = torch.randn(n_r, 15, generator=gen, device=dev)
+    right[:, 0] = torch.arange(n_r, device=dev, dtype=torch.float32)
+    return (Table(["key"] + [f"l{j}" for j in range(20)], left, None, None),
+            Table(["key"] + [f"r{j}" for j in range(14)], right, None, None))
+
+
+def join_gather_phase(dev):
+    """``join_gather`` on the card: the sweep (:func:`join_sweep`); the SF20
+    join's output against the plain version on its own pairs; one launch a
+    captured SF20 join; the kernels a join runs (``torch.profiler`` over 3
+    ``ops.join`` calls, the ``capture.op`` span's work); the kernel's
+    device, host-paced and plain ms at the SF20 shape and its bound (the
+    output written once; the left and right rows the pairs name and the
+    pairs read once)."""
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import ops as dops
+    from repro_torch.dataprep.tracked import track
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.join_gather import join_gather_cuda
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = join_sweep(gen, dev)
+    left, right = sf20_join_tables(gen, dev)
+    ops.reset_launch_counts()
+    out, info = dops.join(left, right, "key")
+    torch.cuda.synchronize(dev)
+    join_counts = ops.launch_counts()
+    check(join_counts == {"join_gather": 1}, f"ops.join launched {join_counts}")
+    args = (left.data, left.null, right.data, right.null, info.join_pairs, 0, 0)
+    check(same_join_output((out.data, out.null), ref.join_gather_ref(*args)),
+          "the SF20 join's output != the plain version on its pairs")
+    n, c_out = out.data.shape
+    check((n, c_out) == (SF20_JOIN_ROWS[0], 35), f"SF20 join output {n} x {c_out}")
+
+    idx = ProvenanceIndex("sf20_join_gather", device=dev)
+    ops.reset_launch_counts()
+    track(left, idx, "trade").join(track(right, idx, "security"), on="key")
+    torch.cuda.synchronize(dev)
+    capture_counts = ops.launch_counts()
+    check(capture_counts.get("join_gather", 0) == 1,
+          f"a captured SF20 join launched {capture_counts}")
+    del idx, out
+
+    join_ms = host_ms(lambda: dops.join(left, right, "key"))
+    profile = profile_calls(lambda i: dops.join(left, right, "key"), 3, join_ms)
+    pairs = info.join_pairs.to(torch.int64)
+    l_rows = int(torch.unique(pairs[:, 0][pairs[:, 0] >= 0]).numel())
+    r_rows = int(torch.unique(pairs[:, 1][pairs[:, 1] >= 0]).numel())
+    moved = n * c_out * 5 + l_rows * 21 * 5 + r_rows * 15 * 5 + n * 8
+    row = {"shape": {"pairs": n, "left": list(left.data.shape), "right": list(right.data.shape),
+                     "out_cols": c_out, "left_rows_read": l_rows, "right_rows_read": r_rows},
+           "ms": device_ms(lambda: join_gather_cuda(*args), reps=20),
+           "host_paced_ms": event_ms(lambda: join_gather_cuda(*args), reps=20),
+           # the plain version's list indexes copy from the host and synchronise,
+           # so no spin covers its enqueue: timed as the host issues it
+           "plain_ms": event_ms(lambda: ref.join_gather_ref(*args), reps=3, rounds=5, warmup=1),
+           "library_ms": None}
+    row = _bound(row, moved, 0.0, 1)
+    return {"phase": "join_gather", "cases": cases, "join_launch_counts": join_counts,
+            "capture_launch_counts": capture_counts, "join_host_ms": join_ms,
+            "join_profile": profile, "sf20": row, "seconds": time.perf_counter() - t_phase}
 
 
 def tpcdi_join(scale, device, spill=None):
@@ -2983,7 +3113,8 @@ def main() -> int:
     libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
-    check({"batched_walk", "bitmatmul", "bitset_rank", "lineage_gather"} <= set(libs),
+    check({"batched_walk", "bitmatmul", "bitset_rank", "lineage_gather", "join_gather"}
+          <= set(libs),
           f"missing kernel libraries: {sorted(libs)}")
 
     # -- 3. each kernel against its plain version (synthetic sweeps) ------------
@@ -4268,6 +4399,8 @@ def main() -> int:
     }
     del rank_copies, gather_copies
     rank_row, gather_row = rank_rows["compas_q2_hop0"], gather_rows["compas_q2_hop0"]
+    join_res = join_gather_phase(dev)
+    emit({**join_res, "card": card})
 
     walk_ms = device_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
     walk_host_paced_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
@@ -4445,6 +4578,11 @@ def main() -> int:
          "ms": gather_row["ms"], "plain_ms": gather_row["plain_ms"],
          "bound_ms": gather_row["bound_ms"], "bound_by": gather_row["bound_by"],
          "library_ms": None, "by_shape": by_shape(gather_rows)},
+        {"name": "join_gather", "route": "cuda", "source": "src/repro_torch/csrc/join_gather.cu",
+         "replaces": None, "max_abs_err": 0, "launches_by_path": {
+             "capture_sf20_join": join_res["capture_launch_counts"].get("join_gather", 0)},
+         **{k: join_res["sf20"][k] for k in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "share_of_bound", "library_ms")}},
     ]})
     for k in ("bitset_rank", "lineage_gather"):
         user = {p: n for p, n in user_path_launches(k).items() if p != "per_hop_baseline"}

@@ -24,6 +24,7 @@ from repro_torch.core.opcat import AttrMap, CaptureInfo, OpCategory
 from repro_torch.core.schema import Bitset
 from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.dataprep.table import Table
+from repro_torch.kernels.ops import join_gather
 
 __all__ = [
     "value_transform",
@@ -468,9 +469,10 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
         count(HOST_SYNCS)
         dangling_r = torch.nonzero(~matched_r).reshape(-1)
         pairs.append(torch.stack([torch.full_like(dangling_r, -1), dangling_r], dim=1))
-    pairs = torch.cat(pairs, dim=0)
+    pairs = torch.cat(pairs, dim=0) if len(pairs) > 1 else pairs[0]
     if max_pairs is not None and len(pairs) > max_pairs:
         pairs = pairs[:max_pairs]
+    join_pairs = pairs.to(torch.int32)
 
     # assemble output: key, left non-key cols, right non-key cols
     l_cols = [c for c in left.columns if c != on]
@@ -478,24 +480,12 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
     out_names = [on] + [f"{c}_l" if c in r_cols else c for c in l_cols] \
         + [f"{c}_r" if c in l_cols else c for c in r_cols]
     n_out_attrs = 1 + len(l_cols) + len(r_cols)
-    has_l = (pairs[:, 0] >= 0)[:, None]
-    has_r = (pairs[:, 1] >= 0)[:, None]
-    li = pairs[:, 0].clamp(min=0)
-    ri = pairs[:, 1].clamp(min=0)
     lj = [left.cid(c) for c in l_cols]
     rj = [right.cid(c) for c in r_cols]
     lkey, rkey = left.cid(on), right.cid(on)
-    count_host_copy(dev, 4)     # the four column lists below
-    data = torch.cat([
-        torch.where(has_l, left.data[li, lkey: lkey + 1], right.data[ri, rkey: rkey + 1]),
-        torch.where(has_l, left.data[li][:, lj], 0.0),
-        torch.where(has_r, right.data[ri][:, rj], 0.0),
-    ], dim=1)
-    null = torch.cat([
-        torch.where(has_l, left.null[li, lkey: lkey + 1], right.null[ri, rkey: rkey + 1]),
-        torch.where(has_l, left.null[li][:, lj], True),
-        torch.where(has_r, right.null[ri][:, rj], True),
-    ], dim=1)
+    data, null = join_gather(left.data.contiguous(), left.null.contiguous(),
+                             right.data.contiguous(), right.null.contiguous(),
+                             join_pairs, lkey, rkey)
     n_out = len(pairs)
     out = Table(
         columns=out_names,
@@ -522,7 +512,7 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
         contextual=False,
         n_out=n_out,
         n_in=[left.n_rows, right.n_rows],
-        join_pairs=pairs.to(torch.int32),
+        join_pairs=join_pairs,
         attr_maps=[
             AttrMap(kind="join", bitset=bits_l, perm=perm_l),
             AttrMap(kind="join", bitset=bits_r, perm=perm_r),

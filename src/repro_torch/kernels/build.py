@@ -21,7 +21,7 @@ from typing import Dict, List
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "launcher",
-           "check_launch", "check_operands"]
+           "check_launch", "check_card", "check_operands"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -107,17 +107,23 @@ def check_launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
-def check_operands(name: str, tensors, ndims) -> torch.device:
-    """The one CUDA device of ``tensors``, after checking that it has
-    compute capability (9, 0) and that every tensor lies on it, is int32,
-    contiguous and of the dimension given in ``ndims``."""
-    dev = tensors[0].device
+def check_card(name: str, dev: torch.device) -> torch.device:
+    """``dev``, after checking that it is a CUDA card of compute capability
+    (9, 0)."""
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel runs on a CUDA card; its operands lie on {dev}")
     if torch.cuda.get_device_capability(dev) < (9, 0):
         raise RuntimeError(
             f"{name} kernel is built for sm_90a; {torch.cuda.get_device_name(dev)} "
             f"has capability {torch.cuda.get_device_capability(dev)}")
+    return dev
+
+
+def check_operands(name: str, tensors, ndims) -> torch.device:
+    """The one CUDA device of ``tensors``, after checking that it has
+    compute capability (9, 0) and that every tensor lies on it, is int32,
+    contiguous and of the dimension given in ``ndims``."""
+    dev = check_card(name, tensors[0].device)
     for t, nd in zip(tensors, ndims):
         if t.device != dev or t.dtype != torch.int32 or t.dim() != nd or not t.is_contiguous():
             raise ValueError(

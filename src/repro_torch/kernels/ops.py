@@ -24,6 +24,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.batched_walk import batched_walk_cuda
 from repro_torch.kernels.bitmatmul import bitmatmul_cuda
 from repro_torch.kernels.bitset_rank import bitset_rank_cuda
+from repro_torch.kernels.join_gather import check_join_operands, join_gather_cuda
 from repro_torch.kernels.lineage_gather import lineage_gather_cuda
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "lineage_gather",
     "batched_walk",
     "batched_walk_unfused",
+    "join_gather",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -195,3 +197,24 @@ def batched_walk_unfused(mask_bits: torch.Tensor, planes: Sequence[torch.Tensor]
         lineage_gather(row_ptr, col_idx, torch.arange(b, dtype=torch.int32, device=dev),
                        max_deg=int(counts.max()) if b else 1)
     return cur, torch.stack(all_counts, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# join_gather: a captured join's output, assembled from its row pairs
+# ---------------------------------------------------------------------------
+def join_gather(left_data: torch.Tensor, left_null: torch.Tensor, right_data: torch.Tensor,
+                right_null: torch.Tensor, pairs: torch.Tensor, lkey: int, rkey: int) -> tuple:
+    """``(data, null)`` of an equi-join from its (n, 2) int32 row ``pairs``
+    (-1 where a side is absent): column 0 the left key, or the right where
+    the left row is absent, then the left's non-key columns in order, then
+    the right's; 0.0 with null set where a side is absent.  The tables'
+    float32 ``data`` and bool ``null`` and the pairs are contiguous."""
+    dev = _device("join_gather", left_data, left_null, right_data, right_null, pairs)
+    if dev.type == "cpu":
+        check_join_operands(left_data, left_null, right_data, right_null, pairs, lkey, rkey)
+        _note_launch("join_gather")
+        return ref.join_gather_ref(left_data, left_null, right_data, right_null, pairs,
+                                   lkey, rkey)
+    out = join_gather_cuda(left_data, left_null, right_data, right_null, pairs, lkey, rkey)
+    _note_launch("join_gather")
+    return out

@@ -22,6 +22,7 @@ __all__ = [
     "bitset_rank_ref",
     "lineage_gather_ref",
     "batched_walk_ref",
+    "join_gather_ref",
 ]
 
 
@@ -129,3 +130,30 @@ def batched_walk_ref(mask_bits: torch.Tensor, planes) -> tuple:
         cur = bitmatmul_ref(cur, plane)
         counts.append(popcount32(cur).sum(dim=1, dtype=torch.int32))
     return cur, torch.stack(counts, dim=0)
+
+
+def join_gather_ref(left_data: torch.Tensor, left_null: torch.Tensor, right_data: torch.Tensor,
+                    right_null: torch.Tensor, pairs: torch.Tensor, lkey: int, rkey: int) -> tuple:
+    """An equi-join's output from its (n, 2) row ``pairs`` (-1 where a side
+    is absent): ``(data, null)`` of shape (n, 1 + L + R), the key from the
+    left row where there is one, else from the right; then the left's
+    non-key columns in order, then the right's; 0.0 with null set where a
+    side is absent."""
+    lj = [j for j in range(left_data.shape[1]) if j != lkey]
+    rj = [j for j in range(right_data.shape[1]) if j != rkey]
+    pairs = pairs.to(torch.int64)
+    has_l = (pairs[:, 0] >= 0)[:, None]
+    has_r = (pairs[:, 1] >= 0)[:, None]
+    li = pairs[:, 0].clamp(min=0)
+    ri = pairs[:, 1].clamp(min=0)
+    data = torch.cat([
+        torch.where(has_l, left_data[li, lkey: lkey + 1], right_data[ri, rkey: rkey + 1]),
+        torch.where(has_l, left_data[li][:, lj], 0.0),
+        torch.where(has_r, right_data[ri][:, rj], 0.0),
+    ], dim=1)
+    null = torch.cat([
+        torch.where(has_l, left_null[li, lkey: lkey + 1], right_null[ri, rkey: rkey + 1]),
+        torch.where(has_l, left_null[li][:, lj], True),
+        torch.where(has_r, right_null[ri][:, rj], True),
+    ], dim=1)
+    return data, null
