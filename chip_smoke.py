@@ -3077,9 +3077,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
-    # routing runs on the cost model's defaults: point the calibration file
-    # at a path inside the checkout that is never written
-    os.environ["REPRO_TORCH_CALIBRATION"] = str(ROOT / "build" / "no_calibration.json")
 
     from repro_torch.core import calibrate
     from repro_torch.core.hopcache import ComposedIndex
@@ -4282,7 +4279,7 @@ def main() -> int:
     for cal_seed in (0, 1):
         t = time.perf_counter()
         fitted = calibrate.calibrate(path=str(ROOT / "build" / f"calibration_smoke{cal_seed}.json"),
-                                     install=False, seed=cal_seed, device=dev)
+                                     seed=cal_seed, device=dev)
         fits.append({"seed": cal_seed, "seconds": time.perf_counter() - t,
                      "path": str(Path(fitted.path).relative_to(ROOT)),
                      "density_threshold": fitted.density_threshold,

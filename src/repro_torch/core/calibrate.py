@@ -19,16 +19,17 @@ host guesses; this module MEASURES them on the device the port runs on:
   CSR-vs-bitplane crossover ``density_threshold =
   sqrt(c_word_op / (32 c_spmm_flop))``;
 * the fitted :class:`~repro_torch.core.costmodel.Constants` persist to the
-  port's own JSON file (``$REPRO_TORCH_CALIBRATION``, else
-  ``~/.cache/repro_torch/calibration.json``) keyed by device name
-  (``torch.cuda.get_device_name()``, ``"cpu"`` on the host), which
-  :func:`repro_torch.core.costmodel.maybe_load_calibration` installs on the
-  first :class:`CostModel` of a later process.  ``repro``'s file is never
-  read, and only the entry of this device is taken.
+  JSON file the caller names, keyed by device name
+  (``torch.cuda.get_device_name()``, ``"cpu"`` on the host);
+  :func:`load_constants` reads one device's entry back.
+
+Calibration installs nothing and nothing reads its file implicitly: the
+router's constants change only where code passes a set to
+:func:`repro_torch.core.costmodel.set_constants`.
 
 Run directly::
 
-    PYTHONPATH=src python -m repro_torch.core.calibrate [--full] [--path FILE]
+    PYTHONPATH=src python -m repro_torch.core.calibrate --path FILE [--full]
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel
 from repro_torch.core.compose import compose_pair_csr, csr_from_pairs
 from repro_torch.core.costmodel import Constants
 from repro_torch.core.device import resolve_device
@@ -49,7 +49,6 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import wrap_int32
 
 __all__ = [
-    "default_path",
     "device_kind",
     "run_microbench",
     "fit_constants",
@@ -59,13 +58,6 @@ __all__ = [
 ]
 
 _FILE_VERSION = 1
-
-
-def default_path() -> str:
-    """``$REPRO_TORCH_CALIBRATION`` or ``~/.cache/repro_torch/calibration.json``
-    — the same resolution :func:`costmodel.maybe_load_calibration` uses."""
-    return os.environ.get("REPRO_TORCH_CALIBRATION") or os.path.join(
-        os.path.expanduser("~"), ".cache", "repro_torch", "calibration.json")
 
 
 def device_kind(device=None) -> str:
@@ -219,9 +211,8 @@ def fit_constants(meas: Dict[str, object], base: Optional[Constants] = None) -> 
 # ---------------------------------------------------------------------------
 # Persistence (JSON, keyed by device name)
 # ---------------------------------------------------------------------------
-def save_constants(constants: Constants, path: Optional[str] = None) -> str:
-    """Merge one device's constants into the calibration file."""
-    path = path or default_path()
+def save_constants(constants: Constants, path: str) -> str:
+    """Merge one device's constants into the calibration file at ``path``."""
     data: Dict[str, object] = {"version": _FILE_VERSION, "devices": {}}
     if os.path.exists(path):
         try:
@@ -241,12 +232,11 @@ def save_constants(constants: Constants, path: Optional[str] = None) -> str:
     return path
 
 
-def load_constants(path: Optional[str] = None,
-                   device: Optional[str] = None) -> Optional[Constants]:
+def load_constants(path: str, device: Optional[str] = None) -> Optional[Constants]:
     """Constants for device name ``device`` (default: :func:`device_kind`)
-    from the calibration file, or None.  Only an entry whose key is that
-    name is taken: a file holding one other device's entry gives None."""
-    path = path or default_path()
+    from the calibration file at ``path``, or None.  Only an entry whose key
+    is that name is taken: a file holding one other device's entry gives
+    None."""
     if not os.path.exists(path):
         return None
     try:
@@ -267,16 +257,12 @@ def load_constants(path: Optional[str] = None,
         return None
 
 
-def calibrate(path: Optional[str] = None, quick: bool = True, install: bool = True,
-              seed: int = 0, device=None) -> Constants:
-    """Measure -> fit -> persist -> (optionally) install, in one call."""
+def calibrate(path: str, quick: bool = True, seed: int = 0, device=None) -> Constants:
+    """Measure -> fit -> write to ``path``, in one call; installs nothing."""
     meas = run_microbench(quick=quick, seed=seed, device=device)
     fitted = fit_constants(meas)
     saved = save_constants(fitted, path)
-    fitted = dataclasses.replace(fitted, path=os.path.abspath(saved))
-    if install:
-        costmodel.set_constants(fitted)
-    return fitted
+    return dataclasses.replace(fitted, path=os.path.abspath(saved))
 
 
 if __name__ == "__main__":  # pragma: no cover - CLI convenience
@@ -285,8 +271,7 @@ if __name__ == "__main__":  # pragma: no cover - CLI convenience
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--full", action="store_true",
                     help="full density x shape grid (default: quick)")
-    ap.add_argument("--path", default=None,
-                    help=f"calibration file (default: {default_path()})")
+    ap.add_argument("--path", required=True, help="calibration file to write")
     args = ap.parse_args()
     c = calibrate(path=args.path, quick=not args.full)
     print(f"calibrated for {c.device!r} -> {c.path}")

@@ -21,7 +21,11 @@ Cost units are *estimated nanoseconds*; only ratios matter.  The ``C_*``
 routing defaults and :data:`DENSITY_THRESHOLD` are ``repro``'s, kept so that
 routing and ``explain()`` agree with it on the same pipelines.  They were
 guesses against a CPU host, not timings of any device;
-:mod:`repro_torch.core.calibrate` measures a replacement set on the card.
+:mod:`repro_torch.core.calibrate` measures a replacement set on the card
+and writes it to the file it is given.  The active set changes only
+through :func:`set_constants`: nothing reads a calibration file
+implicitly, so a set that should route every run is committed as code
+and installed where a reader can see it.
 
 The port always has its sparse backend (torch's CSR), so the backend pick
 depends on density alone; ``repro``'s ``have_scipy`` switch has no
@@ -31,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -41,7 +44,6 @@ __all__ = [
     "set_constants",
     "reset_constants",
     "constants_provenance",
-    "maybe_load_calibration",
     "DENSITY_THRESHOLD",
     "CROSS_FALLBACK_MIN_DEMAND",
     "compose_est",
@@ -101,10 +103,10 @@ class Constants:
 
     The module-level ``C_*`` literals above stay the uncalibrated defaults
     (``Constants()`` reproduces them bit-for-bit);
-    :mod:`repro_torch.core.calibrate` fits a measured set on the card and
-    installs it via :func:`set_constants`.  Every cost function in this
-    module reads the ACTIVE set, so one install re-prices the whole router —
-    CostModel, ``ComposedIndex(backend="auto")`` and
+    :mod:`repro_torch.core.calibrate` fits a measured set on the card, and
+    code installs a set via :func:`set_constants`.  Every cost function in
+    this module reads the ACTIVE set, so one install re-prices the whole
+    router — CostModel, ``ComposedIndex(backend="auto")`` and
     ``QuerySession._strategy`` all consume it implicitly.
     """
 
@@ -144,7 +146,6 @@ class Constants:
 
 
 _ACTIVE = Constants()
-_AUTOLOAD_DONE = False
 
 
 def active_constants() -> Constants:
@@ -159,39 +160,13 @@ def set_constants(constants: Constants) -> None:
 
 
 def reset_constants() -> None:
-    """Back to the uncalibrated defaults (and re-arm autoload)."""
-    global _ACTIVE, _AUTOLOAD_DONE
+    """Back to the uncalibrated defaults."""
+    global _ACTIVE
     _ACTIVE = Constants()
-    _AUTOLOAD_DONE = False
 
 
 def constants_provenance() -> Dict[str, object]:
     return _ACTIVE.provenance()
-
-
-def maybe_load_calibration() -> Constants:
-    """Install constants from the port's calibration file, if one is present.
-
-    The path comes from ``$REPRO_TORCH_CALIBRATION`` (else
-    ``~/.cache/repro_torch/calibration.json``); entries are keyed by device
-    name (see :mod:`repro_torch.core.calibrate`), and only this device's
-    entry is taken.  ``repro``'s file is never read.  Checked once per
-    process (re-armed by :func:`reset_constants`); with no file, the
-    defaults stay active.
-    """
-    global _AUTOLOAD_DONE
-    if _AUTOLOAD_DONE or _ACTIVE.source != "default":
-        return _ACTIVE
-    _AUTOLOAD_DONE = True
-    from repro_torch.core.calibrate import default_path, load_constants  # circular at module scope
-
-    path = default_path()
-    if not os.path.exists(path):
-        return _ACTIVE
-    loaded = load_constants(path)
-    if loaded is not None:
-        set_constants(loaded)
-    return _ACTIVE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -521,14 +496,10 @@ class CostModel:
     tracks cumulative probe *demand* per pair: the one-time composition cost
     is amortized over the probes seen so far, so a stream of tiny probes to
     one far pair flips from walking to composing once enough demand
-    accumulates — the case the old ``hopcache_min_batch`` heuristic
-    mis-routed forever.
+    accumulates, where a batch-size threshold would walk it forever.
     """
 
     def __init__(self, index) -> None:
-        # first model in the process installs calibrated constants when a
-        # calibration file exists; a no-op (bit-for-bit defaults) otherwise
-        maybe_load_calibration()
         self.index = index
         self._chains: Dict[Tuple[str, str], Optional[List[RelStats]]] = {}
         self._composed: Dict[Tuple[str, str],

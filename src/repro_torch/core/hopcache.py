@@ -726,13 +726,6 @@ class ComposedIndex:
         return csr_from_pairs(torch.cat(rows), torch.cat(cols), entry.rows, entry.cols)
 
     # -- batched probes -------------------------------------------------------
-    def _probe_masks(self, rows, n: int) -> Tuple[torch.Tensor, bool]:
-        from repro_torch.core.query import _as_mask, _as_mask_batch, is_probe_batch
-
-        if is_probe_batch(rows):
-            return _as_mask_batch(rows, n, self.device), True
-        return _as_mask(rows, n, self.device)[None, :], False
-
     def _try_relation(self, src: str, dst: str) -> Optional[_Entry]:
         """``_relation_entry`` for probes: no dataflow path -> None (probes
         answer empty, matching the walking engine)."""
@@ -838,40 +831,6 @@ class ComposedIndex:
         """(B, |dst|) bool mask stack -> (B, |src|) bool: relation rows
         intersecting each probe set."""
         return self._backward_probe(self._stack(masks), src, dst)
-
-    def q1_forward(self, src: str, rows, dst: str):
-        """Q1 via ONE batched probe of the composed relation (no DAG walk)."""
-        from repro_torch.core.query import rows_per_probe
-
-        masks, batched = self._probe_masks(rows, self.index.datasets[src].n_rows)
-        res = rows_per_probe(self._forward_probe(masks, src, dst))
-        return res if batched else res[0]
-
-    def q2_backward(self, dst: str, rows, src: str):
-        """Q2: src rows whose composed relation row intersects the probe set."""
-        from repro_torch.core.query import rows_per_probe
-
-        masks, batched = self._probe_masks(rows, self.index.datasets[dst].n_rows)
-        res = rows_per_probe(self._backward_probe(masks, src, dst))
-        return res if batched else res[0]
-
-    def q10_co_contributory(self, d1: str, rows, d2: str, via: str):
-        """Records of ``d2`` co-contributing with ``rows`` of ``d1`` into
-        ``via`` — two composed probes, zero DAG hops."""
-        from repro_torch.core.query import is_probe_batch
-
-        batched = is_probe_batch(rows)
-        via_rows = self.q1_forward(d1, rows, via)
-        res = self.q2_backward(via, via_rows if batched else [via_rows], d2)
-        return res if batched else res[0]
-
-    def q11_co_dependency(self, d2: str, rows, d1: str, d3: str):
-        from repro_torch.core.query import is_probe_batch
-
-        batched = is_probe_batch(rows)
-        back = self.q2_backward(d2, rows if batched else [rows], d1)
-        res = self.q1_forward(d1, back, d3)
-        return res if batched else res[0]
 
     # -- impact invalidation --------------------------------------------------
     def stale_entries(self, datasets) -> List[Tuple[str, str, str]]:

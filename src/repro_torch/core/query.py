@@ -1,8 +1,6 @@
 """Provenance query processing (paper Section IV, Table VII: Q1-Q11).
 
-Two layers, as in ``repro``:
-
-**The physical layer** (used by :mod:`repro_torch.provenance`):
+The physical layer under :mod:`repro_torch.provenance`:
 record-level queries chain ``project(slice(T, p_in, rows), p_out)`` hops
 over the topologically ordered op DAG, on ``(B, n)`` bool mask stacks on
 the index's device; attribute-level queries (Q3/Q4/Q7/Q8) additionally
@@ -30,17 +28,12 @@ thread (row-set x attr-set) terms through the Table-VI attribute maps.
   ``(n, 2)`` int64 cell lists per probe, from the selected rows alone
   (no ``(B, n_rows, nw)`` accumulator).
 
-**The legacy shims**: ``q1_forward`` ... ``q11_co_dependency`` are thin
-deprecation shims over :mod:`repro_torch.provenance`, warning once each;
-they keep the old single-vs-batch guess (:func:`is_probe_batch`) and warn
-with :class:`~repro_torch.provenance.plan.AmbiguousProbeWarning` where it
-is ambiguous (an empty list; a 1-D integer array).
+The query surface over this layer is :func:`repro_torch.provenance.prov`.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,17 +60,6 @@ __all__ = [
     "attr_propagate_terms_batch",
     "is_probe_batch",
     "rows_per_probe",
-    "q1_forward",
-    "q2_backward",
-    "q3_forward_attr",
-    "q4_backward_attr",
-    "q5_forward_how",
-    "q6_backward_how",
-    "q7_forward_attr_how",
-    "q8_backward_attr_how",
-    "q9_all_transformations",
-    "q10_co_contributory",
-    "q11_co_dependency",
 ]
 
 Term = Tuple[torch.Tensor, torch.Tensor]
@@ -199,50 +181,19 @@ def forward_record_masks_batch(
     index: ProvenanceIndex, src: str, rows_batch, collect_hops: bool = False
 ):
     """Every reachable dataset's ``(B, n_rows)`` bool mask stack, from one
-    pass over the DAG.  With ``collect_hops`` the return is ``(masks,
-    hops)``, ``hops[b]`` being probe b's :class:`Hop` trace."""
-    dev = index.device
-    stack = _as_mask_batch(rows_batch, index.datasets[src].n_rows, dev)
-    masks: Dict[str, torch.Tensor] = {src: stack}
-    B = stack.shape[0]
-    hops: List[List[Hop]] = [[] for _ in range(B)]
-    for op in index.downstream_ops(src):
-        out_mask = masks.get(op.output_id)
-        if out_mask is None:
-            out_mask = torch.zeros((B, op.tensor.n_out), dtype=torch.bool, device=dev)
-        for k, in_id in enumerate(op.input_ids):
-            if in_id in masks and _any(masks[in_id]):
-                contrib = op.tensor.forward_mask_batch(k, masks[in_id])
-                if collect_hops:
-                    _trace(hops, op, in_id, op.output_id, contrib)
-                out_mask = out_mask | contrib
-        masks[op.output_id] = out_mask
-    if collect_hops:
-        return masks, hops
-    return masks
+    pass over the DAG: :func:`record_masks_terms_batch` seeded at ``src``.
+    With ``collect_hops`` the return is ``(masks, hops)``, ``hops[b]`` being
+    probe b's :class:`Hop` trace."""
+    stack = _as_mask_batch(rows_batch, index.datasets[src].n_rows, index.device)
+    return record_masks_terms_batch(index, {src: stack}, "fwd", collect_hops=collect_hops)
 
 
 def backward_record_masks_batch(
     index: ProvenanceIndex, dst: str, rows_batch, collect_hops: bool = False
 ):
     """The backward twin of :func:`forward_record_masks_batch`."""
-    dev = index.device
-    stack = _as_mask_batch(rows_batch, index.datasets[dst].n_rows, dev)
-    masks: Dict[str, torch.Tensor] = {dst: stack}
-    B = stack.shape[0]
-    hops: List[List[Hop]] = [[] for _ in range(B)]
-    for op in reversed(index.upstream_ops(dst)):
-        if op.output_id not in masks or not _any(masks[op.output_id]):
-            continue
-        for k, in_id in enumerate(op.input_ids):
-            contrib = op.tensor.backward_mask_batch(k, masks[op.output_id])
-            if collect_hops:
-                _trace(hops, op, op.output_id, in_id, contrib)
-            prev = masks.get(in_id)
-            masks[in_id] = contrib if prev is None else prev | contrib
-    if collect_hops:
-        return masks, hops
-    return masks
+    stack = _as_mask_batch(rows_batch, index.datasets[dst].n_rows, index.device)
+    return record_masks_terms_batch(index, {dst: stack}, "bwd", collect_hops=collect_hops)
 
 
 # ---------------------------------------------------------------------------
@@ -343,11 +294,10 @@ def record_masks_terms_batch(
     """Record propagation seeded at ARBITRARY datasets (federated segments).
 
     ``entry_masks`` maps dataset id -> ``(B, n_rows)`` bool probe stacks.
-    The multi-seed twin of :func:`forward_record_masks_batch` /
-    :func:`backward_record_masks_batch`: one pass over every op reachable
-    from any entry, per-probe hop traces identical to the single-entry
-    walkers.  Returns ``(masks, hops)`` with ``collect_hops``, else
-    ``masks``."""
+    One pass over every op reachable from any entry, in op order (reversed
+    for ``"bwd"``); :func:`forward_record_masks_batch` and
+    :func:`backward_record_masks_batch` are its one-seed calls.  Returns
+    ``(masks, hops)`` with ``collect_hops``, else ``masks``."""
     dev = index.device
     masks: Dict[str, torch.Tensor] = {
         ds: torch.as_tensor(m).to(device=dev, dtype=torch.bool)
@@ -597,174 +547,3 @@ def _pick_via(index: ProvenanceIndex, d1: str, d2: str, fwd_masks, b=None) -> Op
         and index.path_exists(d2, d)
     ]
     return candidates[-1] if candidates else None
-
-
-# ---------------------------------------------------------------------------
-# Legacy Table-VII shims over repro_torch.provenance (deprecated spellings)
-# ---------------------------------------------------------------------------
-_DEPRECATION_WARNED: Set[str] = set()
-
-
-def _warn_deprecated(name: str, spelling: str) -> None:
-    if name in _DEPRECATION_WARNED:
-        return
-    _DEPRECATION_WARNED.add(name)
-    warnings.warn(
-        f"repro_torch.core.query.{name} is deprecated; use "
-        f"repro_torch.provenance.prov(index){spelling}",
-        DeprecationWarning,
-        stacklevel=3,
-    )
-
-
-def _legacy_probe_is_batch(name: str, rows) -> bool:
-    """The old :func:`is_probe_batch` guess, with an
-    :class:`AmbiguousProbeWarning` on the spellings it cannot distinguish."""
-    from repro_torch.provenance.plan import AmbiguousProbeWarning
-
-    if isinstance(rows, (list, tuple)) and len(rows) == 0:
-        warnings.warn(
-            f"{name}: an empty probe [] is ambiguous (one empty probe set vs "
-            "an empty batch) and takes the single-probe path; spell it "
-            "prov(index)...rows([]) or .rows_batch([]) instead",
-            AmbiguousProbeWarning,
-            stacklevel=3,
-        )
-        return False
-    if isinstance(rows, (np.ndarray, torch.Tensor)) and rows.ndim == 1 \
-            and rows.dtype not in (bool, np.bool_, torch.bool):
-        warnings.warn(
-            f"{name}: a 1-D integer array probe is ambiguous (row indices "
-            "vs a length-1 batch) and takes the single-probe (row-index) "
-            "path; spell it prov(index)...rows(...) or .rows_batch(...) "
-            "instead",
-            AmbiguousProbeWarning,
-            stacklevel=3,
-        )
-        return False
-    return is_probe_batch(rows)
-
-
-def _record_shim(index, name, spelling, start, rows, target, direction, how):
-    from repro_torch.provenance import prov
-
-    _warn_deprecated(name, spelling)
-    qb = prov(index).source(start)
-    qb = qb.rows_batch(rows) if _legacy_probe_is_batch(name, rows) else qb.rows(rows)
-    qb = qb.forward() if direction == "fwd" else qb.backward()
-    if how:
-        qb = qb.how()
-    return qb.to(target).run()
-
-
-def _cells_shim(index, name, spelling, start, rows, attrs, target, direction, how):
-    from repro_torch.provenance import prov
-
-    _warn_deprecated(name, spelling)
-    qb = prov(index).source(start)
-    batched = _legacy_probe_is_batch(name, rows)
-    qb = qb.rows_batch(rows) if batched else qb.rows(rows)
-    if batched and is_probe_batch(attrs):
-        qb = qb.attrs_batch(attrs)
-    else:
-        qb = qb.attrs(attrs)
-    qb = qb.forward() if direction == "fwd" else qb.backward()
-    if how:
-        qb = qb.how()
-    return qb.to(target).run()
-
-
-def q1_forward(index: ProvenanceIndex, src: str, rows, dst: str):
-    """Q1: records in ``dst`` derived from ``rows`` of ``src``.  Deprecated
-    shim — ``prov(index).source(src).rows(...).forward().to(dst)``; a batch
-    of probe sets returns one index tensor per probe."""
-    return _record_shim(index, "q1_forward", ".source(src).rows(...).forward().to(dst)",
-                        src, rows, dst, "fwd", how=False)
-
-
-def q2_backward(index: ProvenanceIndex, dst: str, rows, src: str):
-    """Q2: records in ``src`` that contributed to ``rows`` of ``dst``.
-    Deprecated shim — ``prov(index).source(dst).rows(...).backward().to(src)``."""
-    return _record_shim(index, "q2_backward", ".source(dst).rows(...).backward().to(src)",
-                        dst, rows, src, "bwd", how=False)
-
-
-def q3_forward_attr(index, src: str, rows, attrs, dst: str):
-    """Q3: cells of ``dst`` derived from the given cells.  Deprecated shim —
-    ``prov(index).source(src).rows(...).attrs(...).forward().to(dst)``."""
-    return _cells_shim(index, "q3_forward_attr",
-                       ".source(src).rows(...).attrs(...).forward().to(dst)",
-                       src, rows, attrs, dst, "fwd", how=False)
-
-
-def q4_backward_attr(index, dst: str, rows, attrs, src: str):
-    """Q4: source cells the given ``dst`` cells derive from.  Deprecated shim
-    — ``prov(index).source(dst).rows(...).attrs(...).backward().to(src)``."""
-    return _cells_shim(index, "q4_backward_attr",
-                       ".source(dst).rows(...).attrs(...).backward().to(src)",
-                       dst, rows, attrs, src, "bwd", how=False)
-
-
-def q5_forward_how(index: ProvenanceIndex, src: str, rows, dst: str):
-    """Q5: Q1 plus the per-op :class:`Hop` trace.  Deprecated shim — Q1's
-    spelling + ``.how()``."""
-    return _record_shim(index, "q5_forward_how",
-                        ".source(src).rows(...).forward().to(dst).how()",
-                        src, rows, dst, "fwd", how=True)
-
-
-def q6_backward_how(index: ProvenanceIndex, dst: str, rows, src: str):
-    """Q6: Q2 plus the hop trace.  Deprecated shim — Q2's spelling + ``.how()``."""
-    return _record_shim(index, "q6_backward_how",
-                        ".source(dst).rows(...).backward().to(src).how()",
-                        dst, rows, src, "bwd", how=True)
-
-
-def q7_forward_attr_how(index, src: str, rows, attrs, dst: str):
-    """Q7: Q3 plus the hop trace.  Deprecated shim — Q3's spelling + ``.how()``."""
-    return _cells_shim(index, "q7_forward_attr_how",
-                       ".source(src).rows(...).attrs(...).forward().to(dst).how()",
-                       src, rows, attrs, dst, "fwd", how=True)
-
-
-def q8_backward_attr_how(index, dst: str, rows, attrs, src: str):
-    """Q8: Q4 plus the hop trace.  Deprecated shim — Q4's spelling + ``.how()``."""
-    return _cells_shim(index, "q8_backward_attr_how",
-                       ".source(dst).rows(...).attrs(...).backward().to(src).how()",
-                       dst, rows, attrs, src, "bwd", how=True)
-
-
-def q9_all_transformations(index: ProvenanceIndex, dataset: str) -> List[Dict]:
-    """Deprecated shim — ``prov(index).source(dataset).transformations()``."""
-    from repro_torch.provenance import prov
-
-    _warn_deprecated("q9_all_transformations", ".source(dataset).transformations()")
-    return prov(index).source(dataset).transformations().run()
-
-
-def q10_co_contributory(index: ProvenanceIndex, d1: str, rows, d2: str,
-                        via: Optional[str] = None):
-    """Records of ``d2`` used together with ``rows`` of ``d1`` to create new
-    records (in ``via``; defaults to any common descendant).  Deprecated
-    shim — ``prov(index).source(d1).rows(...).co_contributory(d2, via=via)``."""
-    from repro_torch.provenance import prov
-
-    _warn_deprecated("q10_co_contributory",
-                     ".source(d1).rows(...).co_contributory(d2, via=via)")
-    qb = prov(index).source(d1)
-    qb = (qb.rows_batch(rows)
-          if _legacy_probe_is_batch("q10_co_contributory", rows) else qb.rows(rows))
-    return qb.co_contributory(d2, via=via).run()
-
-
-def q11_co_dependency(index: ProvenanceIndex, d2: str, rows, d1: str, d3: str):
-    """Records of ``d3`` lineage-dependent on the ``d1`` records that
-    generated ``rows`` of ``d2``.  Deprecated shim —
-    ``prov(index).source(d2).rows(...).co_dependency(d1, d3)``."""
-    from repro_torch.provenance import prov
-
-    _warn_deprecated("q11_co_dependency", ".source(d2).rows(...).co_dependency(d1, d3)")
-    qb = prov(index).source(d2)
-    qb = (qb.rows_batch(rows)
-          if _legacy_probe_is_batch("q11_co_dependency", rows) else qb.rows(rows))
-    return qb.co_dependency(d1, d3).run()

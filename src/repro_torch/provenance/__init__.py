@@ -21,9 +21,6 @@
   :class:`ShardedTensor` — a row-range-sharded view over one index (the
   sequential per-shard engine), its per-shard hop-cache, and its seam into
   a catalog of shard members.
-
-The legacy Table-VII free functions (``repro_torch.core.query.q1_forward``
-...) are thin deprecation shims over this package.
 """
 from repro_torch.provenance.builder import ProvQuery, prov
 from repro_torch.provenance.catalog import (
@@ -43,7 +40,7 @@ from repro_torch.provenance.impact import (
     erasure_plan,
     whatif_replay,
 )
-from repro_torch.provenance.plan import AmbiguousProbeWarning, QueryPlan
+from repro_torch.provenance.plan import QueryPlan
 from repro_torch.provenance.session import QuerySession
 from repro_torch.provenance.sharded import (
     ShardedComposedIndex,
@@ -56,7 +53,6 @@ __all__ = [
     "ProvQuery",
     "QueryPlan",
     "QuerySession",
-    "AmbiguousProbeWarning",
     "ProvCatalog",
     "BoundaryHandle",
     "FederatedSession",

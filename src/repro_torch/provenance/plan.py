@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["QueryPlan", "AmbiguousProbeWarning", "PLAN_KINDS"]
+__all__ = ["QueryPlan", "PLAN_KINDS"]
 
 PLAN_KINDS = (
     "record",
@@ -39,16 +39,6 @@ PLAN_KINDS = (
     "co_contributory",
     "co_dependency",
 )
-
-
-class AmbiguousProbeWarning(UserWarning):
-    """A probe spelling whose single-vs-batch reading is ambiguous.
-
-    The legacy free functions (``q1_forward`` ...) guess: an empty list and
-    a 1-D integer array take the single-probe path while a list of sets
-    takes the batch path.  The builder's ``.rows(...)`` /
-    ``.rows_batch(...)`` never guess; the legacy shims emit this warning
-    whenever they have to."""
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -29,9 +29,7 @@ record-level          ``hopcache``: a composed-relation probe when the
 Record-level routing is driven by :class:`repro_torch.core.costmodel.CostModel`
 (shared with the hop-cache): per-pair chain statistics feed an estimated
 walk cost against composition cost amortized over the cumulative probe
-demand seen for the pair.  The legacy ``hopcache_min_batch`` batch-size
-heuristic is DEPRECATED but still honored when passed explicitly (with a
-``DeprecationWarning``).  ``use_hopcache=True`` is the default, as in
+demand seen for the pair.  ``use_hopcache=True`` is the default, as in
 ``repro``; ``fused_walk=None`` resolves to True iff the index lies on a
 CUDA device.  :meth:`QuerySession.run_record_terms` and
 :meth:`QuerySession.run_attr_terms` walk from several seed datasets at once
@@ -45,7 +43,6 @@ submission order.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -110,7 +107,6 @@ class QuerySession:
         *,
         use_hopcache: bool = True,
         fused_walk: Optional[bool] = None,
-        hopcache_min_batch: Optional[int] = None,
     ) -> None:
         self.index = index
         self.composed = composed if composed is not None else index.composed()
@@ -118,17 +114,6 @@ class QuerySession:
         # tri-state: None -> the fused kernel walk iff the index is on CUDA;
         # True forces it (the plain version answers on the CPU), False disables
         self.fused_walk = fused_walk
-        if hopcache_min_batch is not None:
-            warnings.warn(
-                "hopcache_min_batch is deprecated: the QuerySession now "
-                "routes record-level plans with a cost model (see "
-                "repro_torch.core.costmodel); passing hopcache_min_batch keeps "
-                "the legacy batch-size heuristic for this session.",
-                DeprecationWarning,
-                stacklevel=2,
-            )
-            hopcache_min_batch = int(hopcache_min_batch)
-        self.hopcache_min_batch = hopcache_min_batch
         # shared with the hop-cache so chain statistics are computed once
         self.costmodel = self.composed.costmodel
         self.counters: Dict[str, int] = {
@@ -166,8 +151,6 @@ class QuerySession:
         """The cost model's verdict for a cost-routable plan — summed over
         every relation leg the hopcache strategy would compose — or None
         when the decision never reaches the cost model."""
-        if self.hopcache_min_batch is not None:
-            return None
         pairs = self._plan_pairs(plan)
         if pairs is None:
             return None
@@ -212,8 +195,6 @@ class QuerySession:
             return "walk"
         if all(self.composed.contains(*p) for p in pairs):
             return "hopcache"  # relations already composed: probe them
-        if self.hopcache_min_batch is not None:  # deprecated legacy heuristic
-            return "hopcache" if plan.n_probes >= self.hopcache_min_batch else "walk"
         return self._choose(plan, note)["strategy"]
 
     def explain(self, plan: QueryPlan) -> Dict[str, object]:
@@ -239,7 +220,8 @@ class QuerySession:
                 {"pair": p, "state": self.composed.residency(*p) or "uncomposed"}
                 for p in pairs
             ]
-        # where the routing constants came from (default vs calibration file)
+        # which constant set decided the routing (the defaults unless code
+        # installed another through costmodel.set_constants)
         out["constants"] = constants_provenance()
         return out
 

@@ -1,10 +1,9 @@
 """Attribute-level queries in the port against the JAX package, exactly.
 
 Q3/Q4 (cells) and Q7/Q8 (cells with hop traces), single and batched,
-through ``repro_torch.provenance.prov(index)`` and through the deprecated
-``q*`` shims, on pipelines replayed from ``pipegen.random_specs``, on the
-diamond, on the German, Compas and Census use cases and on an index
-carried over with ``index_from_numpy``.  Cell lists (int64 ``(n, 2)``,
+through ``repro_torch.provenance.prov(index)``, on pipelines replayed from
+``pipegen.random_specs``, on the diamond, on the German, Compas and Census
+use cases and on an index carried over with ``index_from_numpy``.  Cell lists (int64 ``(n, 2)``,
 row-major) and hop traces must be equal to ``repro``'s; datasets are
 aligned by op position.  Also held to ``repro``: the multi-seed term
 walkers behind ``run_record_terms`` / ``run_attr_terms``, the Table-VI
@@ -14,8 +13,6 @@ number of ``bitmatmul`` dispatches of the attribute walk (one per live
 contraction) and the byte accounting of the attribute planes.  The port
 runs on the CPU, where ``bitmatmul`` takes its plain version.
 """
-import warnings
-
 import numpy as np
 import pytest
 import torch
@@ -67,13 +64,7 @@ def same_how(got, want, ids):
         assert [hop_key(h) for h in gh] == [hop_key(h, ids) for h in wh]
 
 
-def _quiet(fn, *args):
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        return fn(*args)
-
-
-def check_cells(r_idx, t_idx, r_src, r_sink, rng, shims=True):
+def check_cells(r_idx, t_idx, r_src, r_sink, rng):
     """Q3/Q4/Q7/Q8 between ``r_src`` and ``r_sink`` in both packages."""
     ids = id_map(r_idx, t_idx)
     rs = r_walk(r_idx)
@@ -102,17 +93,6 @@ def check_cells(r_idx, t_idx, r_src, r_sink, rng, shims=True):
                 else (tq.backward(), rq.backward())
             same_cells([tq.to(t_to).run()], [rq.to(r_to).run(rs)])
             same_how([tq.how().run()], [rq.how().run(rs)], ids)
-        if not shims:
-            continue
-        cells, how = (("q3_forward_attr", "q7_forward_attr_how") if direction == "fwd"
-                      else ("q4_backward_attr", "q8_backward_attr_how"))
-        same_cells(_quiet(getattr(TQ, cells), t_idx, t_from, rows, attrs, t_to),
-                   _quiet(getattr(RQ, cells), r_idx, r_from, rows, attrs, r_to))
-        same_how(_quiet(getattr(TQ, how), t_idx, t_from, rows, attrs, t_to),
-                 _quiet(getattr(RQ, how), r_idx, r_from, rows, attrs, r_to), ids)
-        p, a = rows[-1], attrs[-1]
-        same_cells([_quiet(getattr(TQ, cells), t_idx, t_from, p, a, t_to)],
-                   [_quiet(getattr(RQ, cells), r_idx, r_from, p, a, r_to)])
 
 
 @pytest.mark.parametrize("seed", range(8))
@@ -146,7 +126,7 @@ def test_use_case_cells_match_reference(name):
     t_idx = ProvenanceIndex(name, device=CPU)
     TU.USECASES[name][1](t_idx, TU.USECASES[name][0](device=CPU))
     check_cells(r_idx, t_idx, r_idx.sources()[0], r_sink,
-                np.random.default_rng(len(name)), shims=name == "german")
+                np.random.default_rng(len(name)))
 
 
 def _carried(r_idx):

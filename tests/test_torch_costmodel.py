@@ -4,12 +4,12 @@ The routing defaults are ``repro``'s, so on the same pipelines
 ``CostModel.choose``, ``QuerySession.explain`` and the session's routing
 counters (``walk`` / ``hopcache`` / ``fused_walk``) must be equal, for every
 hop-cache backend.  Calibration fits the same constants from the same
-measurements, keeps its own file, and never reads ``repro``'s.  Both
-packages' active constants are reset to their defaults around each test.
+measurements and writes them to the file it is given; no calibration file,
+the port's or ``repro``'s, changes the port's routing.  Both packages'
+active constants are reset to their defaults around each test.
 """
 import dataclasses
 import json
-import warnings
 
 import numpy as np
 import pytest
@@ -39,7 +39,6 @@ BACKENDS = ("auto", "csr", "bitplane")
 @pytest.fixture(autouse=True)
 def default_constants(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_CALIBRATION", str(tmp_path / "absent_repro.json"))
-    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(tmp_path / "absent_port.json"))
     RCM.reset_constants()
     TCM.reset_constants()
     yield
@@ -187,19 +186,6 @@ def test_run_masks_routes_like_run():
         ts.run_masks(prov(t_idx).source(ids[sink]).transformations().plan())
 
 
-def test_deprecated_min_batch_routes_like_reference():
-    r_idx, t_idx, src, sink = _pipeline("pipegen2")
-    with pytest.warns(DeprecationWarning, match="hopcache_min_batch"):
-        ts = QuerySession(t_idx, hopcache_min_batch=4)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        rs = RSession(r_idx, RComposed(r_idx, use_pallas=False), hopcache_min_batch=4)
-    for tb, rb in _plans(r_idx, t_idx, src, sink, np.random.default_rng(5)):
-        got, want = ts.run(tb.plan()), rs.run(rb.plan())
-        assert [g.tolist() for g in got] == [w.tolist() for w in want]
-    assert ts.counters == rs.counters and ts.counters["hopcache"] > 0
-
-
 def _synthetic_measurements(device):
     rng = np.random.default_rng(9)
     rows = []
@@ -236,29 +222,42 @@ def test_port_never_reads_the_reference_calibration(tmp_path, monkeypatch):
     assert TCM.active_constants() == TCM.Constants()
 
 
-def test_port_calibration_file_is_keyed_by_device(tmp_path, monkeypatch):
-    path = tmp_path / "port.json"
-    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(path))
+def test_port_calibration_file_is_keyed_by_device(tmp_path):
+    path = str(tmp_path / "port.json")
     fitted = TCal.fit_constants(_synthetic_measurements("NVIDIA H100 80GB HBM3"))
-    TCal.save_constants(fitted)
-    assert set(json.loads(path.read_text())["devices"]) == {"NVIDIA H100 80GB HBM3"}
+    TCal.save_constants(fitted, path)
+    assert set(json.loads(open(path).read())["devices"]) == {"NVIDIA H100 80GB HBM3"}
     # a lone foreign entry is not taken as this host's
-    assert TCal.load_constants(device="cpu") is None
+    assert TCal.load_constants(path, device="cpu") is None
+    # a second device's entry merges beside the first
+    TCal.save_constants(dataclasses.replace(fitted, device="cpu", c_word_op=7.0), path)
+    assert set(json.loads(open(path).read())["devices"]) == {"NVIDIA H100 80GB HBM3", "cpu"}
+    got = TCal.load_constants(path, device="cpu")
+    assert got.source == "calibrated" and got.device == "cpu" and got.c_word_op == 7.0
+    assert TCal.load_constants(path, device="NVIDIA H100 80GB HBM3").c_word_op == fitted.c_word_op
+
+
+def test_calibration_file_changes_no_route(tmp_path, monkeypatch):
+    # a calibrated entry for this host, where an implicit reader would look:
+    # the environment variable, then the home directory's cache
+    fitted = TCal.fit_constants(_synthetic_measurements("cpu"))
+    assert fitted.device == "cpu" and fitted != TCM.Constants()
+    env_file = tmp_path / "env" / "calibration.json"
+    TCal.save_constants(fitted, str(env_file))
+    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(env_file))
+    home = tmp_path / "home"
+    TCal.save_constants(fitted, str(home / ".cache" / "repro_torch" / "calibration.json"))
+    monkeypatch.setenv("HOME", str(home))
     TCM.reset_constants()
-    TCM.CostModel(ProvenanceIndex("x", device="cpu"))
-    assert TCM.active_constants().source == "default"
-    # the entry of this device is
-    TCal.save_constants(dataclasses.replace(fitted, device="cpu"))
-    TCM.reset_constants()
-    TCM.CostModel(ProvenanceIndex("y", device="cpu"))
-    got = TCM.active_constants()
-    assert got.source == "calibrated" and got.device == "cpu"
-    assert got.c_word_op == fitted.c_word_op
-    assert TCal.load_constants(device="NVIDIA H100 80GB HBM3").c_word_op == fitted.c_word_op
+    t_idx, t_sink = _diamond(0)
+    TCM.CostModel(t_idx)
+    assert TCM.active_constants() == TCM.Constants()
+    plan = prov(t_idx).source("src").rows_batch([[0], [1, 2]]).forward().to(t_sink).plan()
+    assert QuerySession(t_idx).explain(plan)["constants"]["source"] == "default"
 
 
 def test_microbench_on_the_host_fits_and_persists(tmp_path):
-    c = TCal.calibrate(path=str(tmp_path / "cal.json"), install=False, device="cpu")
+    c = TCal.calibrate(path=str(tmp_path / "cal.json"), device="cpu")
     assert c.source == "calibrated" and c.device == "cpu" and c.c_word_op > 0
     assert 1e-4 <= c.density_threshold <= 0.5
     assert TCM.active_constants().source == "default"

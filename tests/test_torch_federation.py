@@ -64,7 +64,6 @@ def default_constants(monkeypatch, tmp_path):
     """Both cost models on their (equal) defaults: the cross-route gate and
     every member's routing must decide alike."""
     monkeypatch.setenv("REPRO_CALIBRATION", str(tmp_path / "absent_repro.json"))
-    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(tmp_path / "absent_port.json"))
     RCM.reset_constants()
     TCM.reset_constants()
     yield

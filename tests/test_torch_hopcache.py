@@ -26,6 +26,7 @@ from repro_torch.core.carry import index_from_numpy
 from repro_torch.core.hopcache import ComposedIndex, transpose_bitplane
 from repro_torch.core.pipeline import ProvenanceIndex
 from repro_torch.core.provtensor import pack_bitplane, unpack_bitplane
+from repro_torch.core.query import rows_per_probe
 from repro_torch.dataprep import usecases as TU
 from repro_torch.dataprep.tracked import TrackedTable as TTracked
 from repro_torch.kernels import ops as TK
@@ -226,7 +227,17 @@ def test_residency_contains_and_invalidation():
     same_stats(t_ci, r_ci)
 
 
+def _probe_stack(probes, n):
+    """A ``(B, n)`` bool mask stack, one row per probe set."""
+    masks = torch.zeros((len(probes), n), dtype=torch.bool)
+    for b, rows in enumerate(probes):
+        masks[b, list(rows)] = True
+    return masks
+
+
 def test_q_helpers_match_reference():
+    """``repro``'s Q1/Q2/Q10/Q11 hop-cache helpers, spelled as the port's
+    ``probe_forward`` / ``probe_backward`` and ``rows_per_probe``."""
     base, specs = pipegen.random_specs(4)
     r_idx, r_ids = pipegen.build_merged(base, specs)
     t_idx, t_ids = build_merged(base, specs)
@@ -235,18 +246,26 @@ def test_q_helpers_match_reference():
     rng = np.random.default_rng(4)
     n_src, n_dst = r_idx.datasets["src"].n_rows, r_idx.datasets[r_ids[-1]].n_rows
     fwd, bwd = pipegen.row_probes(rng, n_src), pipegen.row_probes(rng, n_dst)
-    for g, w in zip(t_ci.q1_forward("src", fwd, t_ids[-1]), r_ci.q1_forward("src", fwd, r_ids[-1])):
-        np.testing.assert_array_equal(g.numpy(), w)
-    for g, w in zip(t_ci.q2_backward(t_ids[-1], bwd, "src"), r_ci.q2_backward(r_ids[-1], bwd, "src")):
-        np.testing.assert_array_equal(g.numpy(), w)
-    np.testing.assert_array_equal(t_ci.q1_forward("src", fwd[2], t_ids[-1]).numpy(),
-                                  r_ci.q1_forward("src", fwd[2], r_ids[-1]))
-    for g, w in zip(t_ci.q10_co_contributory("src", fwd, t_ids[1], t_ids[-1]),
-                    r_ci.q10_co_contributory("src", fwd, r_ids[1], r_ids[-1])):
-        np.testing.assert_array_equal(g.numpy(), w)
-    for g, w in zip(t_ci.q11_co_dependency(t_ids[-1], bwd, "src", t_ids[2]),
-                    r_ci.q11_co_dependency(r_ids[-1], bwd, "src", r_ids[2])):
-        np.testing.assert_array_equal(g.numpy(), w)
+    fwd_m, bwd_m = _probe_stack(fwd, n_src), _probe_stack(bwd, n_dst)
+
+    def same(got_masks, want):
+        got = rows_per_probe(got_masks)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+    same(t_ci.probe_forward(fwd_m, "src", t_ids[-1]), r_ci.q1_forward("src", fwd, r_ids[-1]))
+    same(t_ci.probe_backward(bwd_m, t_ids[-1], "src"), r_ci.q2_backward(r_ids[-1], bwd, "src"))
+    same(t_ci.probe_forward(fwd_m[2:3], "src", t_ids[-1]),
+         [r_ci.q1_forward("src", fwd[2], r_ids[-1])])
+    # Q10: forward to the meeting dataset, then back to d2
+    via = t_ci.probe_forward(fwd_m, "src", t_ids[-1])
+    same(t_ci.probe_backward(via, t_ids[-1], t_ids[1]),
+         r_ci.q10_co_contributory("src", fwd, r_ids[1], r_ids[-1]))
+    # Q11: back to the shared ancestor d1, then forward to d3
+    anc = t_ci.probe_backward(bwd_m, t_ids[-1], "src")
+    same(t_ci.probe_forward(anc, "src", t_ids[2]),
+         r_ci.q11_co_dependency(r_ids[-1], bwd, "src", r_ids[2]))
 
 
 def test_bitplane_backend_composes_through_the_bitmatmul_entry():

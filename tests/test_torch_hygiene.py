@@ -107,6 +107,54 @@ def test_no_import_statement_names_jax_or_the_reference():
                     f"{path.name} imports {name}"
 
 
+_HIGHER = tuple(f"repro_torch.{p}" for p in (
+    "provenance", "serve", "launch", "train", "models", "data", "configs"))
+# the index's two accessors of the query layer, imported at call time
+_UPWARD_ALLOWED = {("core/pipeline.py", "session"), ("core/pipeline.py", "export")}
+
+
+def _imports_by_function(tree):
+    """``(enclosing function name or None, imported module)`` of every
+    import statement, module scope and function bodies alike."""
+    out = []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                out.extend((fn, a.name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                base = child.module or ""
+                out.append((fn, base))
+                # ``from repro_torch import provenance`` names the package too
+                out.extend((fn, f"{base}.{a.name}") for a in child.names)
+            visit(child, fn)
+
+    visit(tree, None)
+    return out
+
+
+def test_lower_layers_import_no_higher_layer():
+    """``core``, ``kernels`` and ``dataprep`` sit under the query, serving,
+    training and launch layers, and import none of them, in functions too:
+    the one exception is ``ProvenanceIndex.session()`` / ``export()``."""
+    pkg = ROOT / "src" / "repro_torch"
+    files = [p for sub in ("core", "kernels", "dataprep") for p in sorted((pkg / sub).rglob("*.py"))]
+    assert files
+    seen_allowed = set()
+    for path in files:
+        rel = path.relative_to(pkg).as_posix()
+        for fn, name in _imports_by_function(ast.parse(path.read_text())):
+            if not (name in _HIGHER or name.startswith(tuple(h + "." for h in _HIGHER))):
+                continue
+            assert (rel, fn) in _UPWARD_ALLOWED, f"{rel}:{fn or '<module>'} imports {name}"
+            seen_allowed.add((rel, fn))
+    # the allow-list names no accessor that has stopped importing upward
+    assert seen_allowed == _UPWARD_ALLOWED
+
+
 def test_default_device_is_cuda_or_raises():
     import torch.distributed as dist
 

@@ -30,6 +30,7 @@ from repro.provenance import erasure_plan as r_erasure
 from repro.provenance import whatif_replay as r_whatif
 from repro_torch.core import costmodel as TCM
 from repro_torch.core.pipeline import ProvenanceIndex
+from repro_torch.core.query import rows_per_probe
 from repro_torch.dataprep.table import Table
 from repro_torch.dataprep.tracked import track
 from repro_torch.provenance import (
@@ -57,7 +58,6 @@ SEEDS = list(range(6))
 def default_constants(monkeypatch, tmp_path):
     """Both cost models on their (equal) defaults, so estimates compare."""
     monkeypatch.setenv("REPRO_CALIBRATION", str(tmp_path / "absent_repro.json"))
-    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(tmp_path / "absent_port.json"))
     RCM.reset_constants()
     TCM.reset_constants()
     yield
@@ -183,7 +183,9 @@ def test_invalidation_drops_stale_entries_and_is_idempotent():
     assert apply_invalidations(t_idx, plan) == r_apply(r_idx, r_plan) == 0
     plan2 = erasure_plan(t_idx, "src", [0])
     assert not plan2.invalidations and apply_invalidations(t_idx, plan2) == 0
-    hit = comp.q1_forward("src", [0], sink)
+    seed = torch.zeros((1, t_idx.datasets["src"].n_rows), dtype=torch.bool)
+    seed[0, 0] = True
+    hit = rows_per_probe(comp.probe_forward(seed, "src", sink))[0]
     assert torch.equal(hit, prov(t_idx).source("src").rows([0]).forward().to(sink).run())
 
 
