@@ -194,7 +194,12 @@ PyTorch built for CUDA.  It
    warps, absent sides and rows outside their tables, and on the SF20
    join (2,411,006 pairs, 21 + 15 -> 35 columns), one launch a captured
    SF20 join, the kernels of a join under the profiler, and its times and
-   bound there; then end-to-end latencies of the walk, the default
+   bound there; ``join_match`` (``join_match_phase``) held to its plain
+   version over sizes, key domains, NaN and signed zeros (and ``ops.join``
+   on the card to the CPU's), at the SF20 shape and at one key x 10^6
+   right rows, one launch a join, no ``searchsorted``, ``repeat_interleave``
+   or ``stack`` kernel in a join, its times beside the parent's torch
+   chain and its bound; then end-to-end latencies of the walk, the default
    hop-cache and the bitplane hop-cache.
 
 Every phase prints one JSON line.  Any failure raises and the exit code is
@@ -752,7 +757,7 @@ def join_gather_phase(dev):
     out, info = dops.join(left, right, "key")
     torch.cuda.synchronize(dev)
     join_counts = ops.launch_counts()
-    check(join_counts == {"join_gather": 1}, f"ops.join launched {join_counts}")
+    check(join_counts == {"join_gather": 1, "join_match": 1}, f"ops.join launched {join_counts}")
     args = (left.data, left.null, right.data, right.null, info.join_pairs, 0, 0)
     check(same_join_output((out.data, out.null), ref.join_gather_ref(*args)),
           "the SF20 join's output != the plain version on its pairs")
@@ -786,6 +791,216 @@ def join_gather_phase(dev):
     return {"phase": "join_gather", "cases": cases, "join_launch_counts": join_counts,
             "capture_launch_counts": capture_counts, "join_host_ms": join_ms,
             "join_profile": profile, "sf20": row, "seconds": time.perf_counter() - t_phase}
+
+
+# -- join_match (phase 9c) ----------------------------------------------------------
+JOIN_MATCH_SIZES = (0, 1, 31, 33, 1000, 100_003)
+# NaN, NaN with its sign bit set, -0.0, 0.0, +-inf, +-the least denormal, as float32 bits
+SPECIAL_BITS = (0x7FC00000, 0xFFC00000, 0x80000000, 0, 0x7F800000, 0xFF800000, 1, 0x80000001)
+
+
+def match_launches(left_keys, right_sorted, right_order, total):
+    """The two launches of ``join_match_cuda`` without the host's read of
+    the total between them (``total`` known): a function of no argument
+    that enqueues both, or one of them, for :func:`device_ms`."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.join_match import _ARGTYPES, match_geometry
+
+    nl, nr = left_keys.shape[0], right_sorted.shape[0]
+    dev = left_keys.device
+    geo = match_geometry(nl, nr)
+    counts, offsets, start = (torch.empty(nl, dtype=torch.int32, device=dev) for _ in range(3))
+    scratch = torch.empty(geo.scratch_words, dtype=torch.int64, device=dev)
+    pairs = torch.empty((total, 2), dtype=torch.int32, device=dev)
+    launch = build.launcher("join_match", _ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(phases=(1, 2)):
+        for phase in phases:
+            build.check_launch("join_match", launch(
+                phase, left_keys.data_ptr(), nl, right_sorted.data_ptr(), right_order.data_ptr(),
+                nr, geo.stride, geo.splitters, geo.tiles, counts.data_ptr(), offsets.data_ptr(),
+                start.data_ptr(), scratch.data_ptr(), total, pairs.data_ptr(), stream))
+    return run, pairs
+
+
+def torch_pair_chain(lk, r_order, rk, total):
+    """The parent's pair build from the sort's order: the gather of the
+    sorted keys, two ``searchsorted``s, two ``repeat_interleave``s, the
+    order's gather, the ``stack`` and the cast (``total`` given, so it does
+    not synchronise)."""
+    dev = lk.device
+    rk_sorted = rk[r_order]
+    lo = torch.searchsorted(rk_sorted, lk)
+    counts = torch.searchsorted(rk_sorted, lk, right=True) - lo
+    l_rows = torch.repeat_interleave(torch.arange(lk.shape[0], dtype=torch.int64, device=dev),
+                                     counts, output_size=total)
+    offsets = torch.cumsum(counts, dim=0) - counts
+    flat = torch.repeat_interleave(lo - offsets, counts, output_size=total) \
+        + torch.arange(total, dtype=torch.int64, device=dev)
+    return torch.stack([l_rows, r_order[flat]], dim=1).to(torch.int32)
+
+
+def same_match(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def join_match_sweep(gen, dev):
+    """``join_match_cuda`` against ``ref.join_match_ref`` over left and
+    right sizes around a warp and a tile, key domains from all-equal to
+    unique, special values (NaN, signed zeros, infinities, denormals) on
+    both sides, and ``ops.join`` on the card against the CPU's pairs on
+    the same tables (the card's sort, after ``ops.join``'s NaN
+    canonicalisation, orders NaN and -0.0 as the CPU's).
+    Returns the number of cases."""
+    from repro_torch.dataprep import ops as dops
+    from repro_torch.dataprep.table import Table
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.join_match import join_match_cuda
+
+    cases = 0
+    specials = torch.tensor([b - (b >> 31 << 32) for b in SPECIAL_BITS],
+                            dtype=torch.int32).view(torch.float32).to(dev)
+    for nl in JOIN_MATCH_SIZES:
+        for nr in JOIN_MATCH_SIZES:
+            for dom in (1, max(1, nr // 3), max(1, 4 * nr)):
+                if nl * nr > 10 ** 7 * dom:             # over about 10^7 pairs
+                    continue
+                lk = torch.randint(0, dom + 2, (nl,), generator=gen, device=dev).float()
+                rk = torch.randint(0, dom, (nr,), generator=gen, device=dev).float()
+                for keys in (lk, rk):
+                    if keys.numel() > 8:
+                        at = torch.randint(0, keys.numel(), (len(SPECIAL_BITS),),
+                                           generator=gen, device=dev)
+                        keys[at] = specials
+                # as ops.join sorts: every NaN made one, so the sort puts them last
+                srt = torch.sort(torch.nan_to_num(rk, nan=float("nan"), posinf=float("inf"),
+                                                  neginf=float("-inf")), stable=True)
+                got = join_match_cuda(lk, srt.values, srt.indices)
+                want = ref.join_match_ref(lk, srt.values, srt.indices)
+                check(same_match(got, want),
+                      f"join_match != plain at {nl} x {nr} keys, domain {dom}")
+                cases += 1
+                if nl and nr and nl * nr <= 10 ** 6 * dom:
+                    cols = {"k": lk.cpu().numpy(), "v": np.arange(nl, dtype=np.float32)}
+                    rcols = {"k": rk.cpu().numpy(), "w": np.arange(nr, dtype=np.float32)}
+                    for how in ("inner", "outer"):
+                        on_card = dops.join(Table.from_columns(cols, device=dev),
+                                            Table.from_columns(rcols, device=dev), "k", how)
+                        on_cpu = dops.join(Table.from_columns(cols, device="cpu"),
+                                           Table.from_columns(rcols, device="cpu"), "k", how)
+                        check(torch.equal(on_card[1].join_pairs.cpu(), on_cpu[1].join_pairs),
+                              f"ops.join's pairs on the card != the CPU's at {nl} x {nr}, "
+                              f"domain {dom}, {how}")
+                        cases += 1
+    torch.cuda.synchronize(dev)
+    return cases
+
+
+def join_match_times(lk, rk, what):
+    """Device, host-paced and plain ms of ``join_match`` on one shape, with
+    and without the sort, beside the parent's torch chain, and the bound:
+    the keys and the order read once, counts and offsets written and read
+    once, the pairs written once."""
+    from repro_torch.kernels import ops, ref
+
+    srt = torch.sort(rk, stable=True)
+    got = ops.join_match(lk, srt.values, srt.indices)
+    want = ref.join_match_ref(lk, srt.values, srt.indices)
+    check(same_match(got, want), f"join_match != plain at the {what} shape")
+    total = got[2].shape[0]
+    check(torch.equal(torch_pair_chain(lk, srt.indices, rk, total), got[2]),
+          f"join_match != the parent's chain at the {what} shape")
+    run, pairs = match_launches(lk, srt.values, srt.indices, total)
+    run()
+    check(torch.equal(pairs, got[2]), f"the timed launches wrote other pairs at {what}")
+    nl, nr = lk.shape[0], rk.shape[0]
+
+    def sorted_then(fn):
+        def call():
+            s = torch.sort(rk, stable=True)
+            return fn(s)
+        return call
+
+    row = {"shape": {"left": nl, "right": nr, "pairs": total},
+           "ms": device_ms(run, reps=20),
+           "match_ms": device_ms(lambda: run((1,)), reps=20),
+           "write_ms": device_ms(lambda: run((2,)), reps=20),
+           "sort_ms": device_ms(sorted_then(lambda s: s), reps=20),
+           "with_sort_ms": device_ms(sorted_then(lambda s: run()), reps=20),
+           "host_paced_ms": event_ms(lambda: ops.join_match(lk, srt.values, srt.indices), reps=20),
+           # the plain version reads its total, so no spin covers its enqueue
+           "plain_ms": event_ms(lambda: ref.join_match_ref(lk, srt.values, srt.indices),
+                                reps=5, rounds=5, warmup=1),
+           "library_ms": device_ms(lambda: torch_pair_chain(lk, srt.indices, rk, total), reps=10),
+           "library": "the parent's chain: a gather, two searchsorted, two repeat_interleave, "
+                      "a gather, a stack and a cast (its total given)"}
+    row["library_with_sort_ms"] = device_ms(
+        sorted_then(lambda s: torch_pair_chain(lk, s.indices, rk, total)), reps=10)
+    return _bound(row, 4 * nl + 12 * nr + 16 * nl + 8 * total, 0.0, 2)
+
+
+def join_match_phase(dev):
+    """``join_match`` on the card: the sweep (:func:`join_match_sweep`);
+    the SF20 join's keys (:func:`sf20_join_tables`) and a skewed shape (one
+    key x 10^6 right rows, three left rows on it among 2,411,006) held to
+    the plain version and the parent's chain and timed; one ``join_match``
+    launch an ``ops.join`` and a captured SF20 join; the kernels of three
+    SF20 ``ops.join`` calls under the profiler, none of them the parent's
+    ``searchsorted``, ``repeat_interleave`` (``compute_cuda_kernel``) or
+    ``stack`` (``CatArrayBatchedCopy``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pipeline import ProvenanceIndex
+    from repro_torch.dataprep import ops as dops
+    from repro_torch.dataprep.tracked import track
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cases = join_match_sweep(gen, dev)
+    left, right = sf20_join_tables(gen, dev)
+    ops.reset_launch_counts()
+    dops.join(left, right, "key")
+    torch.cuda.synchronize(dev)
+    join_counts = ops.launch_counts()
+    check(join_counts == {"join_gather": 1, "join_match": 1}, f"ops.join launched {join_counts}")
+    idx = ProvenanceIndex("sf20_join_match", device=dev)
+    ops.reset_launch_counts()
+    track(left, idx, "trade").join(track(right, idx, "security"), on="key")
+    torch.cuda.synchronize(dev)
+    capture_counts = ops.launch_counts()
+    check(capture_counts.get("join_match", 0) == 1, f"a captured SF20 join launched {capture_counts}")
+    del idx
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            dops.join(left, right, "key")
+        torch.cuda.synchronize(dev)
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_kernel.get(e.name, (0, 0.0))
+            by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    join_kernels = [{"kernel": k[:120], "calls_per_join": n / 3, "device_ms_per_join": us / 3e3}
+                    for k, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])]
+    parent_kernels = [k for k in by_kernel
+                      if any(p in k for p in ("searchsorted", "compute_cuda_kernel",
+                                              "CatArrayBatchedCopy"))]
+    check(not parent_kernels, f"a join ran the parent's pair kernels: {parent_kernels}")
+
+    sf20 = join_match_times(left.col("key").contiguous(), right.col("key"), "SF20")
+    n_l = SF20_JOIN_ROWS[0]
+    skew_r = torch.cat([torch.full((1_000_000,), 7.0, device=dev),
+                        torch.randint(8, 2_000_000, (1_601_648,), generator=gen,
+                                      device=dev).float()])
+    skew_r = skew_r[torch.randperm(skew_r.numel(), generator=gen, device=dev)]
+    skew_l = torch.randint(8, 2_000_000, (n_l,), generator=gen, device=dev).float()
+    skew_l[torch.tensor([5, n_l // 2, n_l - 1], device=dev)] = 7.0
+    skew = join_match_times(skew_l, skew_r, "skewed")
+    return {"phase": "join_match", "cases": cases, "join_launch_counts": join_counts,
+            "capture_launch_counts": capture_counts, "join_kernels": join_kernels,
+            "sf20": sf20, "skew_1e6": skew, "seconds": time.perf_counter() - t_phase}
 
 
 def tpcdi_join(scale, device, spill=None):
@@ -2557,6 +2772,9 @@ def mesh_phase(dev, indexes, queries, answers):
         torch.use_deterministic_algorithms(True)
         try:
             gen = torch.Generator(device=dev)
+            # the blocks the earlier phases left cached go back to the card:
+            # the step's 4 GiB ones need not fit among them
+            torch.cuda.empty_cache()
             held = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             plain, plain_met = step(init_train_state(cfg, gen.manual_seed(SEED), opt, dev), batch)
@@ -3110,8 +3328,8 @@ def main() -> int:
     libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
-    check({"batched_walk", "bitmatmul", "bitset_rank", "lineage_gather", "join_gather"}
-          <= set(libs),
+    check({"batched_walk", "bitmatmul", "bitset_rank", "lineage_gather", "join_gather",
+           "join_match"} <= set(libs),
           f"missing kernel libraries: {sorted(libs)}")
 
     # -- 3. each kernel against its plain version (synthetic sweeps) ------------
@@ -4398,6 +4616,8 @@ def main() -> int:
     rank_row, gather_row = rank_rows["compas_q2_hop0"], gather_rows["compas_q2_hop0"]
     join_res = join_gather_phase(dev)
     emit({**join_res, "card": card})
+    match_res = join_match_phase(dev)
+    emit({**match_res, "card": card})
 
     walk_ms = device_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
     walk_host_paced_ms = event_ms(lambda: batched_walk_cuda(q2_mask, compas_bwd))
@@ -4580,6 +4800,13 @@ def main() -> int:
              "capture_sf20_join": join_res["capture_launch_counts"].get("join_gather", 0)},
          **{k: join_res["sf20"][k] for k in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
                                              "bound_by", "share_of_bound", "library_ms")}},
+        {"name": "join_match", "route": "cuda", "source": "src/repro_torch/csrc/join_match.cu",
+         "replaces": None, "max_abs_err": 0, "launches_by_path": {
+             "capture_sf20_join": match_res["capture_launch_counts"].get("join_match", 0)},
+         **{k: match_res["sf20"][k] for k in ("ms", "host_paced_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "share_of_bound", "library_ms")},
+         "by_shape": by_shape({"tpcdi_sf20": match_res["sf20"],
+                               "skew_1e6": match_res["skew_1e6"]})},
     ]})
     for k in ("bitset_rank", "lineage_gather"):
         user = {p: n for p, n in user_path_launches(k).items() if p != "per_hop_baseline"}

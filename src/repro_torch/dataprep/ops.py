@@ -24,7 +24,7 @@ from repro_torch.core.opcat import AttrMap, CaptureInfo, OpCategory
 from repro_torch.core.schema import Bitset
 from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.dataprep.table import Table
-from repro_torch.kernels.ops import join_gather
+from repro_torch.kernels.ops import join_gather, join_match
 
 __all__ = [
     "value_transform",
@@ -437,42 +437,36 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
     through a stable sort of the right keys, so the (left_row, right_row)
     pairs ARE the provenance.  Pair order is ``repro``'s: matches by left
     row, then by right key order; then left dangles; then right dangles.
+    Keys compare in numpy's order: a NaN key matches every NaN key, and
+    ``-0.0`` matches ``0.0``.
     """
     if left.device != right.device:
         raise ValueError(f"join inputs lie on {left.device} and {right.device}")
     dev = left.device
     lk = left.col(on).contiguous()
-    rk = right.col(on)
-    r_order = torch.sort(rk, stable=True).indices
-    rk_sorted = rk[r_order]
-    lo = torch.searchsorted(rk_sorted, lk)
-    hi = torch.searchsorted(rk_sorted, lk, right=True)
-    counts = hi - lo
+    # one NaN for all: the card's radix sort puts a NaN with its sign bit
+    # set first, numpy every NaN last
+    r_sorted = torch.sort(torch.nan_to_num(right.col(on), nan=float("nan"), posinf=float("inf"),
+                                           neginf=float("-inf")), stable=True)
+    # the match reads its total once
     count(HOST_SYNCS)
-    total = int(counts.sum())
-    l_rows = torch.repeat_interleave(torch.arange(left.n_rows, dtype=torch.int64, device=dev),
-                                     counts, output_size=total)
-    offsets = torch.cumsum(counts, dim=0) - counts
-    flat = torch.repeat_interleave(lo - offsets, counts, output_size=total) \
-        + torch.arange(total, dtype=torch.int64, device=dev)
-    r_rows = r_order[flat]
+    counts, _, matched = join_match(lk, r_sorted.values, r_sorted.indices)
 
-    pairs = [torch.stack([l_rows, r_rows], dim=1)]
+    pairs = [matched]
     if how in ("left", "outer"):
         count(HOST_SYNCS)
-        dangling_l = torch.nonzero(counts == 0).reshape(-1)
+        dangling_l = torch.nonzero(counts == 0).reshape(-1).to(torch.int32)
         pairs.append(torch.stack([dangling_l, torch.full_like(dangling_l, -1)], dim=1))
     if how in ("right", "outer"):
         matched_r = torch.zeros(right.n_rows, dtype=torch.bool, device=dev)
-        matched_r[r_rows] = True
+        matched_r[matched[:, 1]] = True
         count_host_copy(dev)
         count(HOST_SYNCS)
-        dangling_r = torch.nonzero(~matched_r).reshape(-1)
+        dangling_r = torch.nonzero(~matched_r).reshape(-1).to(torch.int32)
         pairs.append(torch.stack([torch.full_like(dangling_r, -1), dangling_r], dim=1))
-    pairs = torch.cat(pairs, dim=0) if len(pairs) > 1 else pairs[0]
-    if max_pairs is not None and len(pairs) > max_pairs:
-        pairs = pairs[:max_pairs]
-    join_pairs = pairs.to(torch.int32)
+    join_pairs = torch.cat(pairs, dim=0) if len(pairs) > 1 else pairs[0]
+    if max_pairs is not None and len(join_pairs) > max_pairs:
+        join_pairs = join_pairs[:max_pairs].clone()
 
     # assemble output: key, left non-key cols, right non-key cols
     l_cols = [c for c in left.columns if c != on]
@@ -486,7 +480,7 @@ def join(left: Table, right: Table, on: str, how: str = "inner",
     data, null = join_gather(left.data.contiguous(), left.null.contiguous(),
                              right.data.contiguous(), right.null.contiguous(),
                              join_pairs, lkey, rkey)
-    n_out = len(pairs)
+    n_out = len(join_pairs)
     out = Table(
         columns=out_names,
         data=data,

@@ -12,7 +12,7 @@ Dispatch is by the device of the operands, never by a flag:
 of the kernel, counted right after it was accepted; on the CPU the call of
 its plain version, the CPU's stand-in for the kernel.  ``bitplane_probe``
 is the same contraction as ``bitmatmul`` and counts as a ``bitmatmul``
-launch.
+launch; ``join_match`` counts once a call for its two launches.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ from repro_torch.kernels.batched_walk import batched_walk_cuda
 from repro_torch.kernels.bitmatmul import bitmatmul_cuda
 from repro_torch.kernels.bitset_rank import bitset_rank_cuda
 from repro_torch.kernels.join_gather import check_join_operands, join_gather_cuda
+from repro_torch.kernels.join_match import (check_match_operands, check_match_total,
+                                            join_match_cuda)
 from repro_torch.kernels.lineage_gather import lineage_gather_cuda
 
 __all__ = [
@@ -35,6 +37,7 @@ __all__ = [
     "batched_walk",
     "batched_walk_unfused",
     "join_gather",
+    "join_match",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -217,4 +220,30 @@ def join_gather(left_data: torch.Tensor, left_null: torch.Tensor, right_data: to
                                    lkey, rkey)
     out = join_gather_cuda(left_data, left_null, right_data, right_null, pairs, lkey, rkey)
     _note_launch("join_gather")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# join_match: a captured join's row pairs, from its sorted right keys
+# ---------------------------------------------------------------------------
+def join_match(left_keys: torch.Tensor, right_sorted: torch.Tensor,
+               right_order: torch.Tensor) -> tuple:
+    """``(counts, offsets, pairs)`` of an equi-join: each left row's int32
+    match count and exclusive offset, and the contiguous (total, 2) int32
+    (left row, right row) pairs, left rows ascending, each row's matches in
+    the order of the stable sort that gave ``right_sorted`` (float32) and
+    ``right_order`` (int64).  Keys compare in numpy's order: NaN matches
+    NaN, ``-0.0`` matches ``0.0``; ``right_sorted`` is ascending in it, every
+    NaN last (the card's sort puts a NaN with its sign bit set first, so
+    ``ops.join`` makes every NaN one before it sorts).  Reads the total once
+    from the device."""
+    dev = _device("join_match", left_keys, right_sorted, right_order)
+    if dev.type == "cpu":
+        check_match_operands(left_keys, right_sorted, right_order)
+        _note_launch("join_match")
+        out = ref.join_match_ref(left_keys, right_sorted, right_order)
+        check_match_total(out[2].shape[0])
+        return out
+    out = join_match_cuda(left_keys, right_sorted, right_order)
+    _note_launch("join_match")
     return out

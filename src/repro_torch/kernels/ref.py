@@ -23,6 +23,8 @@ __all__ = [
     "lineage_gather_ref",
     "batched_walk_ref",
     "join_gather_ref",
+    "order_key",
+    "join_match_ref",
 ]
 
 
@@ -157,3 +159,37 @@ def join_gather_ref(left_data: torch.Tensor, left_null: torch.Tensor, right_data
         torch.where(has_r, right_null[ri][:, rj], True),
     ], dim=1)
     return data, null
+
+
+def order_key(keys: torch.Tensor) -> torch.Tensor:
+    """float32 keys -> int64 keys in [0, 2^32) that sort as numpy sorts the
+    floats: every NaN last and equal to every other, ``-0.0`` equal to
+    ``0.0``.  The float's bits with the sign flipped for positives and all
+    bits flipped for negatives, the sortable image of IEEE 754."""
+    bits = keys.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    key = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits, bits | 0x80000000)
+    return torch.where(torch.isnan(keys), 0xFFFFFFFF, key)
+
+
+def join_match_ref(left_keys: torch.Tensor, right_sorted: torch.Tensor,
+                   right_order: torch.Tensor) -> tuple:
+    """An equi-join's row pairs from its float32 left keys (L,), the right
+    keys stably sorted (R,) and the sort's int64 order (R,): ``(counts,
+    offsets, pairs)``, each left row's int32 match count and exclusive
+    offset into the int32 ``pairs`` (total, 2) of (left row, right row),
+    left rows ascending and each row's matches in sorted-key order.  Keys
+    compare as :func:`order_key` orders them, which is numpy's order.
+    Reads the total once from the device."""
+    rk, lk = order_key(right_sorted), order_key(left_keys)
+    lo = torch.searchsorted(rk, lk)
+    counts = torch.searchsorted(rk, lk, right=True) - lo
+    total = int(counts.sum())
+    offsets = torch.cumsum(counts, dim=0) - counts
+    dev = left_keys.device
+    l_rows = torch.repeat_interleave(torch.arange(len(lk), dtype=torch.int64, device=dev),
+                                     counts, output_size=total)
+    flat = torch.repeat_interleave(lo - offsets, counts, output_size=total) \
+        + torch.arange(total, dtype=torch.int64, device=dev)
+    pairs = torch.stack([l_rows, right_order[flat]], dim=1).to(torch.int32)
+    return counts.to(torch.int32), offsets.to(torch.int32), pairs

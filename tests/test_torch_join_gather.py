@@ -10,8 +10,8 @@ kernel's walk (``csrc/join_gather.cu``: a warp's 32 pairs, each lane's
 (row, column) stepping by (32 // C, 32 % C) with a carry, the column map
 from the keys and widths) is held to the plain version at widths around
 the warp's 32 words and at ragged last warps.  Each join counts one
-``join_gather`` dispatch, and the operand checks raise on what the kernel
-does not take.
+``join_gather`` dispatch (and one ``join_match``, which built its pairs),
+and the operand checks raise on what the kernel does not take.
 """
 import numpy as np
 import pytest
@@ -115,9 +115,9 @@ def test_one_dispatch_a_join(how):
     (_, t_l), (_, t_r), _ = _case("dangles", seed=5)
     TK.reset_launch_counts()
     TO.join(t_l, t_r, "k", how)
-    assert TK.launch_counts() == {"join_gather": 1}
+    assert TK.launch_counts() == {"join_gather": 1, "join_match": 1}
     TO.join(t_l, t_r, "k", how, max_pairs=3)
-    assert TK.launch_counts() == {"join_gather": 2}
+    assert TK.launch_counts() == {"join_gather": 2, "join_match": 2}
     TK.reset_launch_counts()
 
 

@@ -436,6 +436,9 @@ def test_unfused_walk_equals_fused_in_k_times_3_launches(hops, density):
                                torch.zeros((5, 2), dtype=torch.float32, device=d),
                                torch.zeros((5, 2), dtype=torch.bool, device=d),
                                torch.zeros((6, 2), dtype=torch.int32, device=d), 0, 0)),
+    ("join_match", lambda d: (torch.zeros(3, dtype=torch.float32, device=d),
+                              torch.zeros(5, dtype=torch.float32, device=d),
+                              torch.zeros(5, dtype=torch.int64, device=d))),
 ])
 def test_new_entries_have_no_fallback_off_the_cpu(entry, args):
     kw = {"max_deg": 2} if entry == "lineage_gather" else {}
