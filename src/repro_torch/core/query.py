@@ -60,6 +60,7 @@ __all__ = [
     "attr_propagate_terms_batch",
     "is_probe_batch",
     "rows_per_probe",
+    "rows_flat",
 ]
 
 Term = Tuple[torch.Tensor, torch.Tensor]
@@ -469,22 +470,32 @@ def _attr_propagate_batch(
 def rows_per_probe(mask_stack: torch.Tensor) -> List[torch.Tensor]:
     """Each probe's row indices from a ``(B, n)`` bool mask stack: int64,
     ascending, on the stack's device, as ``torch.nonzero`` gives them row
-    by row, with ONE host read for the whole batch.
+    by row, with ONE host read for the whole batch: the views of
+    :func:`rows_flat`'s buffer split by its counts."""
+    flat, counts = rows_flat(mask_stack)
+    if len(counts) <= 1:
+        return [flat] if counts else []
+    return list(torch.split(flat, counts))
+
+
+def rows_flat(mask_stack: torch.Tensor) -> Tuple[torch.Tensor, List[int]]:
+    """Every probe's row indices from a ``(B, n)`` bool mask stack as one
+    int64 buffer, probe after probe, each probe's rows ascending, and the
+    per-probe counts on the host, with ONE host read for the whole batch.
 
     The per-probe counts are reduced on the device and read with one
     ``.tolist()``; their sum sizes a ``nonzero_static`` over the stack,
-    which needs no read, and its row column splits by the counts, so the
-    answers are views of one buffer.  A single probe takes one ``nonzero``
-    (one read either way, and no reduction)."""
+    which needs no read.  A single probe takes one ``nonzero`` (one read
+    either way, and no reduction)."""
     B = mask_stack.shape[0]
     if B == 0:
-        return []
+        return torch.zeros(0, dtype=torch.int64, device=mask_stack.device), []
     count(HOST_SYNCS, 1)
     if B == 1:
-        return [torch.nonzero(mask_stack[0]).reshape(-1)]
+        flat = torch.nonzero(mask_stack[0]).reshape(-1)
+        return flat, [len(flat)]
     counts = _row_counts(mask_stack).tolist()
-    rows = torch.nonzero_static(mask_stack, size=sum(counts))[:, 1].contiguous()
-    return list(torch.split(rows, counts))
+    return torch.nonzero_static(mask_stack, size=sum(counts))[:, 1].contiguous(), counts
 
 
 def _row_counts(mask_stack: torch.Tensor) -> torch.Tensor:

@@ -13,32 +13,51 @@ the index's device, through the port's own ops
 * oversample's jitter is regenerated from the stored seed (numpy's
   ``default_rng``, as capture drew it), so even synthetic rows recompute
   exactly;
-* join/append outputs are assembled directly from their provenance-related
-  input rows via the stored attribute permutations.
+* a join's rows are assembled by capture's own kernel,
+  :func:`repro_torch.kernels.ops.join_gather`, from the selected row pairs:
+  a materialized input goes to it whole with the pairs as they are, a
+  non-materialized one is recomputed once on its distinct rows and its
+  side of the pairs remapped onto them;
+* append outputs are assembled from their input rows via the stored
+  attribute permutations.
 
 ``recompute_rows(index, dataset, rows)`` returns a Table whose i-th row is
 record ``rows[i]`` of ``dataset``.  An op whose tensor was spilled is
 faulted back first (:meth:`~repro_torch.core.provtensor.ProvTensor.resident`):
 its capture payload aliases are read here.
+
+Counted while a :func:`~repro_torch.core.spans.recording` is open:
+:data:`RECOMPUTE_OPS` once an op re-executed, :data:`RECOMPUTE_ROWS` the
+rows it re-executed on, and :data:`~repro_torch.core.spans.HOST_SYNCS` at
+every read of the device (a ``unique``, a ``nonzero``, a ``bool()``) and
+every copy from the host.  A materialized dataset's rows are a gather,
+which reads nothing.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.opcat import OpCategory
 from repro_torch.core.pipeline import OpRecord, ProvenanceIndex
+from repro_torch.core.spans import HOST_SYNCS, count, count_host_copy
 from repro_torch.dataprep import ops as P
 from repro_torch.dataprep.table import Table
+from repro_torch.kernels.ops import join_gather
 
-__all__ = ["materialized_frontier", "recompute_rows", "fetch_rows"]
+__all__ = ["RECOMPUTE_OPS", "RECOMPUTE_ROWS", "materialized_frontier", "recompute_rows",
+           "fetch_rows"]
+
+RECOMPUTE_OPS = "recompute_ops"      # ops re-executed
+RECOMPUTE_ROWS = "recompute_rows"    # the rows they re-executed on
 
 
 def _row_tensor(rows, device) -> torch.Tensor:
     if isinstance(rows, torch.Tensor):
         return rows.to(device=device, dtype=torch.int64).reshape(-1)
+    count_host_copy(device)
     return torch.as_tensor(np.asarray(list(rows), dtype=np.int64), device=device)
 
 
@@ -59,8 +78,14 @@ def materialized_frontier(index: ProvenanceIndex, dataset: str) -> str:
 
 
 def fetch_rows(index: ProvenanceIndex, dataset: str, rows) -> Table:
-    """Rows (duplicates allowed, any order) of ``dataset``, aligned 1:1."""
+    """Rows (duplicates allowed, any order) of ``dataset``, aligned 1:1: a
+    gather of a materialized dataset (``recompute_rows``, with no
+    ``unique``), else a recomputation of the distinct rows (one ``unique``)
+    gathered back into ``rows``' order."""
     rows = _row_tensor(rows, index.device)
+    if index.datasets[dataset].materialized:
+        return recompute_rows(index, dataset, rows)
+    count(HOST_SYNCS)
     uniq, inv = torch.unique(rows, return_inverse=True)
     return recompute_rows(index, dataset, uniq).take_rows(inv)
 
@@ -95,6 +120,7 @@ def _apply_rowwise(op: OpRecord, t: Table) -> Table:
         return out
     if name.startswith("discretize:"):
         j = t.cid(params["col"])
+        count_host_copy(t.device)
         edges = torch.as_tensor(params["edges"], dtype=torch.float32, device=t.device)
         out.data[:, j] = torch.searchsorted(edges, t.data[:, j].contiguous()).to(torch.float32)
         return out
@@ -107,6 +133,7 @@ def _apply_rowwise(op: OpRecord, t: Table) -> Table:
         return out2
     if name == "string_indexer":
         j = t.cid(params["col"])
+        count_host_copy(t.device)
         domain = torch.as_tensor(params["domain"], dtype=torch.float32, device=t.device)
         codes = torch.searchsorted(domain, t.data[:, j].contiguous()).to(torch.float32)
         return Table(
@@ -122,6 +149,36 @@ def _apply_rowwise(op: OpRecord, t: Table) -> Table:
     raise NotImplementedError(name)
 
 
+def _join_keys(op: OpRecord, n_left: int, n_right: int) -> Tuple[int, int]:
+    """The join's key columns, after checking that its stored permutations
+    are ``ops.join``'s layout, the one ``join_gather`` writes: the key,
+    then the left's other columns in order, then the right's."""
+    # the permutations are host tensors: reading them waits for no device
+    perm_l = op.info.attr_maps[0].perm.numpy().tolist()
+    perm_r = op.info.attr_maps[1].perm.numpy().tolist()
+    lkey, rkey = perm_l[0], perm_r[0]
+    want_l = [lkey] + [j for j in range(n_left) if j != lkey] + [-1] * (n_right - 1)
+    want_r = [rkey] + [-1] * (n_left - 1) + [j for j in range(n_right) if j != rkey]
+    if perm_l != want_l or perm_r != want_r:
+        raise ValueError(f"{op.info.op_name}: attribute permutations {perm_l}, {perm_r} are "
+                         "not a captured join's layout (key, left columns, right columns)")
+    return lkey, rkey
+
+
+def _join_side(index: ProvenanceIndex, dataset: str, side: torch.Tensor):
+    """(table, row of it for each pair) for one input of a join: a
+    materialized input whole with its side of the pairs; else its distinct
+    rows recomputed (one ``unique``) and the side remapped onto them, -1
+    kept."""
+    rec = index.datasets[dataset]
+    if rec.materialized:
+        return rec.table, side
+    count(HOST_SYNCS)
+    uniq, inv = torch.unique(side.clamp(min=0), return_inverse=True)
+    return (recompute_rows(index, dataset, uniq),
+            torch.where(side >= 0, inv.to(torch.int32), -1))
+
+
 def recompute_rows(index: ProvenanceIndex, dataset: str, rows: Sequence[int]) -> Table:
     """Table whose i-th row is record rows[i] of ``dataset`` (exact values)."""
     dev = index.device
@@ -134,6 +191,8 @@ def recompute_rows(index: ProvenanceIndex, dataset: str, rows: Sequence[int]) ->
     op.tensor.resident()  # fault a spilled tensor back: the payload reads
     info = op.info        # below (kept_rows/src_rows/join_pairs) alias it
     cat = info.category
+    count(RECOMPUTE_OPS)
+    count(RECOMPUTE_ROWS, len(rows))
 
     if cat in (OpCategory.TRANSFORM, OpCategory.VREDUCE, OpCategory.VAUGMENT):
         sub = fetch_rows(index, op.input_ids[0], rows)
@@ -148,71 +207,60 @@ def recompute_rows(index: ProvenanceIndex, dataset: str, rows: Sequence[int]) ->
                 f"{info.op_name}: multi-parent augmentation has no per-row "
                 "value recomputation (packed sequences are token streams)")
         src = info.src_rows.long()[rows]
+        count(HOST_SYNCS)
         if bool((src < 0).any()):
             raise ValueError(f"{info.op_name}: rows {rows[src < 0].tolist()} are "
                              "synthetic with no established source")
         sub = fetch_rows(index, op.input_ids[0], src)
         # regenerate oversample jitter exactly from the stored seed
-        if info.op_name == "oversample" and info.params.get("noise", 0) > 0:
-            n_in = info.n_in[0]
-            n_new = info.n_out - n_in
+        n_in = info.n_in[0]
+        n_new = info.n_out - n_in
+        if info.op_name == "oversample" and info.params.get("noise", 0) > 0 and n_new > 0:
             rng = np.random.default_rng(info.params["seed"])
             rng.integers(0, n_in, size=n_new)          # skip the picks draw
             noise = rng.normal(0.0, info.params["noise"],
                                size=(n_new, sub.n_cols)).astype(np.float32)
+            count_host_copy(dev)
             noise = torch.from_numpy(noise).to(dev)
-            synth = rows >= n_in
-            sub.data[synth] += noise[rows[synth] - n_in]
+            synth = (rows >= n_in)[:, None]
+            jitter = noise[(rows - n_in).clamp(min=0, max=n_new - 1)]
+            sub.data = torch.where(synth, sub.data + jitter, sub.data)
         return sub
 
     cols = list(index.datasets[dataset].columns)
     if cat is OpCategory.JOIN:
-        pairs = info.join_pairs.long()[rows]
-        has_l, has_r = pairs[:, 0] >= 0, pairs[:, 1] >= 0
-        left = fetch_rows(index, op.input_ids[0], pairs[:, 0].clamp(min=0))
-        right = fetch_rows(index, op.input_ids[1], pairs[:, 1].clamp(min=0))
-        # assemble through the stored output-attr -> input-attr permutations
-        perm_l = info.attr_maps[0].perm.tolist()
-        perm_r = info.attr_maps[1].perm.tolist()
-        n_attrs = len(perm_l)
-        data = torch.zeros((len(rows), n_attrs), dtype=torch.float32, device=dev)
-        null = torch.ones((len(rows), n_attrs), dtype=torch.bool, device=dev)
-        # right side fills where the left did not (shared key columns keep
-        # the left value on matched rows)
-        right_only = has_r & ~has_l
-        for a in range(n_attrs):
-            if perm_l[a] >= 0:
-                data[has_l, a] = left.data[has_l, perm_l[a]]
-                null[has_l, a] = left.null[has_l, perm_l[a]]
-            if perm_r[a] >= 0:
-                use_r = right_only if perm_l[a] >= 0 else has_r
-                data[use_r, a] = right.data[use_r, perm_r[a]]
-                null[use_r, a] = right.null[use_r, perm_r[a]]
+        pairs = info.join_pairs[rows].to(torch.int32)
+        (left, lp), (right, rp) = (_join_side(index, d, pairs[:, k])
+                                   for k, d in enumerate(op.input_ids))
+        lkey, rkey = _join_keys(op, left.n_cols, right.n_cols)
+        data, null = join_gather(left.data.contiguous(), left.null.contiguous(),
+                                 right.data.contiguous(), right.null.contiguous(),
+                                 torch.stack([lp, rp], dim=1), lkey, rkey)
         vocab = {c: v for c, v in {**right.vocab, **left.vocab}.items() if c in set(cols)}
         return Table(columns=cols, data=data, null=null, index=rows.clone(), vocab=vocab)
 
     if cat is OpCategory.APPEND:
         n_l = info.n_in[0]
         is_l = rows < n_l
-        perm_l = info.attr_maps[0].perm.tolist()
-        perm_r = info.attr_maps[1].perm.tolist()
         data = torch.zeros((len(rows), len(cols)), dtype=torch.float32, device=dev)
         null = torch.ones((len(rows), len(cols)), dtype=torch.bool, device=dev)
         vocab = {}
-        if bool((~is_l).any()):
-            rt = fetch_rows(index, op.input_ids[1], rows[~is_l] - n_l)
-            vocab.update(rt.vocab)
-            for a in range(len(cols)):
-                if perm_r[a] >= 0:
-                    data[~is_l, a] = rt.data[:, perm_r[a]]
-                    null[~is_l, a] = rt.null[:, perm_r[a]]
-        if bool(is_l.any()):
-            lt = fetch_rows(index, op.input_ids[0], rows[is_l])
-            vocab.update(lt.vocab)
-            for a in range(len(cols)):
-                if perm_l[a] >= 0:
-                    data[is_l, a] = lt.data[:, perm_l[a]]
-                    null[is_l, a] = lt.null[:, perm_l[a]]
+        # the right input's rows, then the left's, each written through its
+        # stored output-attr -> input-attr permutation
+        for k, at, offset in ((1, ~is_l, n_l), (0, is_l, 0)):
+            count(HOST_SYNCS)
+            at = torch.nonzero(at).reshape(-1)
+            if not len(at):
+                continue
+            part = fetch_rows(index, op.input_ids[k], rows[at] - offset)
+            vocab.update(part.vocab)
+            perm = info.attr_maps[k].perm.numpy().tolist()
+            out_cols = [a for a, p in enumerate(perm) if p >= 0]
+            count_host_copy(dev, 2)
+            out_at = torch.as_tensor(out_cols, dtype=torch.int64, device=dev)
+            in_at = torch.as_tensor([perm[a] for a in out_cols], dtype=torch.int64, device=dev)
+            data[at[:, None], out_at] = part.data[:, in_at]
+            null[at[:, None], out_at] = part.null[:, in_at]
         vocab = {c: v for c, v in vocab.items() if c in set(cols)}
         return Table(columns=cols, data=data, null=null, index=rows.clone(), vocab=vocab)
 

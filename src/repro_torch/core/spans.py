@@ -28,6 +28,11 @@ a device tensor, and a copy from the host.  The query and capture paths
 count each such read where it happens, on every device, so that a run on
 the CPU counts what the same calls wait for on the card; a copy from the
 host counts only where there is one, and on the CPU there is none.
+
+A values plan's batched recomputation runs in one ``recompute.fetch`` span
+on the index's device (``provenance/session.py``), which counts
+``recompute_ops`` (ops re-executed) and ``recompute_rows`` (the rows they
+ran on; both named in ``core/recompute.py``) beside its ``host_syncs``.
 """
 from __future__ import annotations
 

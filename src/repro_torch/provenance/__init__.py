@@ -41,7 +41,7 @@ from repro_torch.provenance.impact import (
     whatif_replay,
 )
 from repro_torch.provenance.plan import QueryPlan
-from repro_torch.provenance.session import QuerySession
+from repro_torch.provenance.session import ProbeValues, QuerySession, RecordValues
 from repro_torch.provenance.sharded import (
     ShardedComposedIndex,
     ShardedProvenanceIndex,
@@ -53,6 +53,8 @@ __all__ = [
     "ProvQuery",
     "QueryPlan",
     "QuerySession",
+    "RecordValues",
+    "ProbeValues",
     "ProvCatalog",
     "BoundaryHandle",
     "FederatedSession",

@@ -11,6 +11,7 @@ from ``.plan()`` is handed to a
     prov(index).source(sink).rows([0]).backward().to("D_l").run()        # Q2
     prov(index).source("D_l").rows([0]).attrs([1]).forward().to(sink)    # Q3
     ... .how()                                                           # Q5-Q8
+    prov(index).source(sink).rows([0]).backward().to(mid).values().run() # Q2 + values
     prov(index).source(sink).transformations().run()                     # Q9
     prov(index).source("D_l").rows([0]).co_contributory("D_r").run()     # Q10
     prov(index).source(mid).rows([0]).co_dependency("D_l", sink).run()   # Q11
@@ -122,6 +123,7 @@ class ProvQuery:
         self._direction: Optional[str] = None
         self._target: Optional[str] = None
         self._how = False
+        self._values = False
         self._kind: Optional[str] = None
         self._via: Optional[str] = None
         self._anchor: Optional[str] = None
@@ -179,6 +181,15 @@ class ProvQuery:
         self._how = True
         return self
 
+    def values(self) -> "ProvQuery":
+        """Also return the target dataset's values at each probe's answer
+        rows (record plans only; recomputed where the target is not
+        materialized): a batched plan answers with one
+        :class:`~repro_torch.provenance.session.RecordValues`, a single
+        probe with its :class:`~repro_torch.provenance.session.ProbeValues`."""
+        self._values = True
+        return self
+
     # -- non record/cells kinds ----------------------------------------------
     def transformations(self) -> "ProvQuery":
         """Q9: every transformation applied to ``.source`` (metadata only)."""
@@ -215,7 +226,7 @@ class ProvQuery:
         if kind is None:
             kind = "cells" if self._attrs is not None else "record"
         if kind == "transformations":
-            return QueryPlan(kind=kind, source=self._source)
+            return QueryPlan(kind=kind, source=self._source, values=self._values)
 
         dev = self._index.device
         ds = self._index.datasets[self._source]
@@ -253,6 +264,7 @@ class ProvQuery:
             rows=rows,
             attrs=attrs,
             how=self._how,
+            values=self._values,
             batched=self._rows_batched,
             via=self._via,
             anchor=self._anchor,

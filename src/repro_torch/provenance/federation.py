@@ -628,6 +628,10 @@ class FederatedSession:
 
     # -- executors -------------------------------------------------------------
     def _check_cross_supported(self, plan: QueryPlan) -> None:
+        if plan.values:
+            raise FederationError(
+                "a values plan runs within one member: its target's values are "
+                "recomputed from that member's index")
         if plan.kind == "co_contributory" and plan.via is None:
             raise FederationError(
                 "cross-index co_contributory needs an explicit via= dataset "

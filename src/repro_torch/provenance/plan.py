@@ -16,7 +16,9 @@ Plan kinds and their Table-VII queries:
 =================  ==========================================================
 kind               covers
 =================  ==========================================================
-``record``         Q1/Q2 (``how=False``), Q5/Q6 (``how=True``)
+``record``         Q1/Q2 (``how=False``), Q5/Q6 (``how=True``); with
+                   ``values=True``, Q1/Q2 with the target's values at the
+                   answer rows (recomputed where the target is not kept)
 ``cells``          Q3/Q4 (``how=False``), Q7/Q8 (``how=True``)
 ``transformations``  Q9 (metadata only)
 ``co_contributory``  Q10 (``via`` optional — per-probe default otherwise)
@@ -58,6 +60,7 @@ class QueryPlan:
     rows: Optional[torch.Tensor] = None   # (B, n_source) bool
     attrs: Optional[torch.Tensor] = None  # (B, n_source_cols) bool (cells only)
     how: bool = False                   # collect Hop traces (Q5-Q8)
+    values: bool = False                # also return the target's values (record)
     batched: bool = False               # caller asked for batch-shaped results
     via: Optional[str] = None           # Q10 meeting dataset (None = per-probe)
     anchor: Optional[str] = None        # Q11 shared-ancestor dataset (d1)
@@ -81,6 +84,10 @@ class QueryPlan:
             raise ValueError("co_contributory plan needs a target dataset (d2)")
         if self.how and self.kind not in ("record", "cells"):
             raise ValueError(f"how-provenance is undefined for {self.kind} plans")
+        if self.values and self.kind != "record":
+            raise ValueError(f"values are defined for record plans, not {self.kind} plans")
+        if self.values and self.how:
+            raise ValueError("a values plan collects no how-provenance")
         if (
             self.rows is not None
             and self.attrs is not None
@@ -119,6 +126,8 @@ class QueryPlan:
             bits.append("attrs")
         if self.how:
             bits.append("how")
+        if self.values:
+            bits.append("values")
         if self.via:
             bits.append(f"via={self.via}")
         if self.anchor:
@@ -129,7 +138,7 @@ class QueryPlan:
         """Plans with equal keys answer from ONE fused physical pass.
 
         Everything except the probe masks participates: kind, endpoints,
-        direction, how, attr-presence, via/anchor.
+        direction, how, values, attr-presence, via/anchor.
         """
         return (
             self.kind,
@@ -139,5 +148,6 @@ class QueryPlan:
             self.via,
             self.anchor,
             self.how,
+            self.values,
             self.attrs is not None,
         )

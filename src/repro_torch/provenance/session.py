@@ -39,20 +39,79 @@ CUDA device.  :meth:`QuerySession.run_record_terms` and
 pass: the probe mask stacks concatenate along the batch axis, a single
 physical execution answers the union, and results split back per plan in
 submission order.
+
+A values plan (``.values()``) answers its record plan as a
+:class:`RecordValues`: the batch's answer rows extracted with one host
+read, and the target dataset's values at all of them from ONE
+:func:`~repro_torch.core.recompute.fetch_rows` (one ``unique`` over the
+union when the target is not materialized), under the span
+``recompute.fetch``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import itertools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import query as Q
 from repro_torch.core.costmodel import constants_provenance
+from repro_torch.core.recompute import fetch_rows
 from repro_torch.core.spans import HOST_SYNCS, count, span
 from repro_torch.provenance.plan import QueryPlan
 
-__all__ = ["QuerySession", "run_many_fused"]
+__all__ = ["QuerySession", "RecordValues", "ProbeValues", "run_many_fused"]
+
+
+class ProbeValues(NamedTuple):
+    """One probe's answer to a values plan: its answer rows of the target
+    (int64, ascending) and the target's values at those rows, in that
+    order (float32 ``data`` and bool ``null``, one row each), with the
+    target's column names."""
+
+    rows: torch.Tensor
+    data: torch.Tensor
+    null: torch.Tensor
+    columns: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecordValues:
+    """A batched values plan's answer: ONE table for the whole batch.
+
+    Probe ``b`` owns entries ``offsets[b]:offsets[b + 1]`` of ``rows``
+    (int64 answer rows of the target, ascending within the probe), ``data``
+    (float32) and ``null`` (bool), whose ``i``-th row holds the target's
+    values at ``rows[i]``.  ``offsets`` are host ints (the counts that
+    extraction reads).  Indexing gives a probe's :class:`ProbeValues`, a
+    slice the probes' sub-batch (views, offsets rebased); iteration gives
+    every probe's."""
+
+    columns: Tuple[str, ...]
+    rows: torch.Tensor        # (N,) int64
+    data: torch.Tensor        # (N, C) float32
+    null: torch.Tensor        # (N, C) bool
+    offsets: Tuple[int, ...]  # (B + 1,)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, b):
+        if isinstance(b, slice):
+            start, stop, step = b.indices(len(self))
+            if step != 1:
+                raise ValueError("a RecordValues slices by consecutive probes only")
+            offs = self.offsets[start: max(start, stop) + 1]
+            lo, hi = offs[0], offs[-1]
+            return RecordValues(self.columns, self.rows[lo:hi], self.data[lo:hi],
+                                self.null[lo:hi], tuple(o - lo for o in offs))
+        b = range(len(self))[b]
+        lo, hi = self.offsets[b], self.offsets[b + 1]
+        return ProbeValues(self.rows[lo:hi], self.data[lo:hi], self.null[lo:hi], self.columns)
+
+    def __iter__(self):
+        return (self[b] for b in range(len(self)))
 
 
 def run_many_fused(plans: Sequence, run_one, execute_batched,
@@ -233,8 +292,9 @@ class QuerySession:
     # -- execution -------------------------------------------------------------
     def run(self, plan: QueryPlan):
         """Execute one plan.  Single-probe plans return one result (an int64
-        index tensor, an ``(n, 2)`` int64 cell list, or ``(result, hops)``);
-        batched plans return one such result per probe."""
+        index tensor, an ``(n, 2)`` int64 cell list, ``(result, hops)``, or
+        a values plan's :class:`ProbeValues`); batched plans return one such
+        result per probe (a values plan: one :class:`RecordValues`)."""
         with span("session.run"):
             self.counters["plans"] += 1
             if plan.kind == "transformations":
@@ -254,7 +314,7 @@ class QuerySession:
         n_target)`` boolean mask stack — no per-probe index conversion.
         Routing and counters are identical to :meth:`run` (they share
         :meth:`_record_masks`, the one record executor)."""
-        if plan.kind != "record" or plan.how:
+        if plan.kind != "record" or plan.how or plan.values:
             raise ValueError("run_masks handles plain record plans only")
         self.counters["plans"] += 1
         strategy = self._strategy(plan)
@@ -331,6 +391,8 @@ class QuerySession:
         if not plan.how:
             with span("session.execute"):
                 masks = self._record_masks(plan, strategy)
+            if plan.values:
+                return self._record_values(plan, masks)
             with span("session.extract"):
                 return Q.rows_per_probe(masks)
         # how-traces only live on the walk (see _strategy)
@@ -341,6 +403,16 @@ class QuerySession:
             out = masks.get(plan.target, self._empty(plan))
         with span("session.extract"):
             return list(zip(Q.rows_per_probe(out), hops))
+
+    def _record_values(self, plan: QueryPlan, masks: torch.Tensor) -> RecordValues:
+        """The batch's answer rows with one host read, then the target's
+        values at all of them with one recomputation."""
+        with span("session.extract"):
+            rows, counts = Q.rows_flat(masks)
+        with span("recompute.fetch", self.index.device):
+            t = fetch_rows(self.index, plan.target, rows)
+        return RecordValues(tuple(t.columns), rows, t.data, t.null,
+                            tuple(itertools.accumulate(counts, initial=0)))
 
     def _exec_cells(self, plan: QueryPlan) -> List:
         ds = self.index.datasets[plan.target]
